@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the repository root; needs one card
+    python3 chip_smoke.py --profile  # only: where a party round's time goes
+
+Phases (any failure raises and exits non-zero; nothing is caught):
+
+1. Device and build: the card's name and power limit, TF32 off, and both
+   CUDA kernels built from src/repro_torch/kernels/csrc/ (one nvcc per
+   source, in parallel) into build/kernels/.
+2. Kernels: each kernel against its plain torch version on the card,
+   bitwise, at the main path's shapes and at 2^24 elements, with CUDA-event
+   times (median of 20 after warm-up) and the memory-bound floor.
+3. Main path: the defended AsyREVEL party round (Algorithm 1,
+   ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
+   x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
+   fused int8 + gaussian DP + rademacher, 10 rounds of 8 party updates.
+   Launch counters are zeroed just before it and read just after; losses
+   must be finite, wire bytes exact, and the unfused run bitwise equal.
+   Then the same port on the card against the port on the CPU on a small
+   problem, and an undefended D7 training run (scale 0.01, 1200 updates)
+   whose loss must fall.
+4. The ``{"kernels": [...]}`` line, the card line, and last
+   ``{"ok": true, "device": {...}}``.
+
+``--profile`` runs none of that: it builds the kernels, warms up, and
+traces 2 rounds (16 party updates) of the defended D7 round with
+``torch.profiler``, printing the device-busy share, the kernels by device
+time, and what the eager threefry ``bits`` calls cost in that trace: each
+call is a ``record_function`` span, counted, with its host time and the
+device launches made inside it.
+
+It imports nothing of jax or of the reference package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+# f32 operations per element of defended_encode, counted from the kernel's
+# source: the gaussian chain (uniform, open interval, log1p or log,
+# erf_inv's Horner, two products, the add) is ~64, Laplace's ~48; clip 2;
+# the int8 quantize (divide, add, floor, clamp) 6.
+OPS_NOISE = {"gaussian": 64, "laplace": 48}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps=20, warmup=3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+def bitwise_equal(a, b) -> bool:
+    import torch
+    if isinstance(a, tuple):
+        return all(bitwise_equal(x, y) for x, y in zip(a, b))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ia = a.view(torch.int16) if a.element_size() == 2 else (
+        a.view(torch.int32) if a.element_size() == 4 else a)
+    ib = b.view(torch.int16) if b.element_size() == 2 else (
+        b.view(torch.int32) if b.element_size() == 4 else b)
+    return bool(torch.equal(ia, ib))
+
+
+def max_abs(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(max_abs(x, y) for x, y in zip(a, b))
+    return float((a.float() - b.float()).abs().max())
+
+
+# ------------------------------------------------------------ kernel phase --
+
+def kernel_phase(dev):
+    import torch
+    from repro_torch.configs import DPConfig
+    from repro_torch.kernels import fused_round, zo_update
+    from repro_torch.utils import prng
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {"defended_encode": 0.0, "zo_update": 0.0}
+    timed = {}
+
+    def plain_encode(c, dpb, rnb, dp, codec):
+        return fused_round._encode_math(fused_round._defend_math(c, dpb, dp),
+                                        rnb, codec)
+
+    for n in (2048, 1 << 24):
+        c = 2.0 * torch.randn(n, device=dev, generator=gen)
+        for codec in ("f32", "bf16", "int8"):
+            for mech in (None, "gaussian", "laplace"):
+                dp = None if mech is None else DPConfig(
+                    noise_multiplier=1.3, clip=1.0, mechanism=mech)
+                dpb = None if dp is None else prng.bits((7, n), (n,), dev)
+                rnb = prng.bits((9, n), (n,), dev) if codec == "int8" \
+                    else None
+                got = fused_round.defended_encode(c, dpb, rnb, dp, codec)
+                want = plain_encode(c, dpb, rnb, dp, codec)
+                torch.cuda.synchronize()
+                if not bitwise_equal(got, want):
+                    raise AssertionError(
+                        f"defended_encode != plain at n={n} codec={codec} "
+                        f"dp={mech}: max |diff| {max_abs(got, want)}")
+                worst["defended_encode"] = max(worst["defended_encode"],
+                                               max_abs(got, want))
+                kern = time_ms(lambda: fused_round.defended_encode(
+                    c, dpb, rnb, dp, codec))
+                plain = time_ms(lambda: plain_encode(c, dpb, rnb, dp, codec))
+                nbytes = 4 * n + (4 * n if dpb is not None else 0) \
+                    + (4 * n if rnb is not None else 0) \
+                    + {"f32": 4 * n, "bf16": 2 * n, "int8": n + 4}[codec]
+                ops = n * ((OPS_NOISE[mech] if mech else 0)
+                           + (2 if mech else 0)
+                           + (6 if codec == "int8" else 0))
+                bound = max(nbytes / HBM_BYTES_PER_S,
+                            ops / F32_FLOPS_PER_S) * 1e3
+                row = {"kernel": "defended_encode", "n": n, "codec": codec,
+                       "dp": mech, "bitwise": True, "kernel_ms": kern,
+                       "plain_ms": plain, "bound_ms": bound,
+                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                    >= ops / F32_FLOPS_PER_S
+                                    else "operations")}
+                log(json.dumps(row))
+                if n == 2048 and codec == "int8" and mech == "gaussian":
+                    timed["defended_encode"] = row
+        # the undefended int8 path without a rounding key (round-to-even)
+        if n == 2048:
+            got = fused_round.defended_encode(c, None, None, None, "int8")
+            want = plain_encode(c, None, None, None, "int8")
+            if not bitwise_equal(got, want):
+                raise AssertionError("defended_encode int8 without key")
+
+    for n in (12544, 128, 1, 80, 10, 1 << 24):
+        w = torch.randn(n, device=dev, generator=gen)
+        b = prng.bits((3, n), (n,), dev)
+        for scale in (-5e-2, 3.7e-4):
+            got = zo_update.zo_update(w, b, scale)
+            want = zo_update.zo_update_plain(w, b, scale)
+            torch.cuda.synchronize()
+            if not bitwise_equal(got, want):
+                raise AssertionError(f"zo_update != plain at N={n}")
+            worst["zo_update"] = max(worst["zo_update"], max_abs(got, want))
+        kern = time_ms(lambda: zo_update.zo_update(w, b, -5e-2))
+        plain = time_ms(lambda: zo_update.zo_update_plain(w, b, -5e-2))
+        bound = max(12 * n / HBM_BYTES_PER_S,
+                    2 * n / F32_FLOPS_PER_S) * 1e3
+        row = {"kernel": "zo_update", "n": n, "bitwise": True,
+               "kernel_ms": kern, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": "bytes"}
+        log(json.dumps(row))
+        if n == 12544:
+            timed["zo_update"] = row
+    return timed, worst
+
+
+# --------------------------------------------------------- main-path phase --
+
+def d7_config(fused: bool, dp: bool):
+    from repro_torch.configs import DPConfig, VFLConfig
+    return VFLConfig(num_parties=8, direction="rademacher", mu=5e-2,
+                     lr_party=2e-2, lr_server=1e-2, codec="int8",
+                     dp=DPConfig(noise_multiplier=1.3, clip=1.0) if dp
+                     else None, fused=fused)
+
+
+def main_path_phase(dev):
+    import numpy as np
+    import torch
+    from repro_torch.configs import DPConfig, PaperFCNConfig, VFLConfig
+    from repro_torch.core import comms
+    from repro_torch.core.async_host import HostAsyncTrainer
+    from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.data.synthetic import make_paper_dataset
+    from repro_torch.data.vertical import pad_party_views, vertical_partition
+    from repro_torch.kernels import fused_round, zo_update
+
+    q, batch, rounds = 8, 2048, 10
+    t = time.perf_counter()
+    Xp, y, spec, pad = d7_data(q)
+    model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
+                                         num_classes=spec.classes,
+                                         num_parties=q))
+    log(f"[main] D7 n={len(y)} d={spec.d} q={q} pad={pad} batch={batch} "
+        f"data {time.perf_counter() - t:.1f}s")
+
+    def run(fused):
+        tr = HostAsyncTrainer(model, d7_config(fused, dp=True), Xp, y,
+                              batch_size=batch, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tr.run_serial(rounds)
+        torch.cuda.synchronize()
+        return tr, res, (time.perf_counter() - t0) * 1e3 / (rounds * q)
+
+    fused_round.defended_encode.launches = 0
+    zo_update.zo_update.launches = 0
+    tr_f, res_f, ms_f = run(fused=True)
+    launches = {"defended_encode": fused_round.defended_encode.launches,
+                "zo_update": zo_update.zo_update.launches}
+    log(f"[main] fused: {len(res_f.history)} updates, {ms_f:.2f} ms per "
+        f"party round, launches {launches}")
+    for name, k in launches.items():
+        if k == 0:
+            raise AssertionError(f"the main path never launched {name}")
+
+    losses = [h for _, h in res_f.history]
+    if len(losses) != rounds * q or not all(math.isfinite(h) for h in losses):
+        raise AssertionError(f"bad losses {losses}")
+    up, down = rounds * q * 2 * (batch + 4), rounds * q * 2 * 4
+    if (res_f.bytes_up, res_f.bytes_down) != (up, down):
+        raise AssertionError(f"bytes {(res_f.bytes_up, res_f.bytes_down)} "
+                             f"!= {(up, down)}")
+    comms.validate_channel(tr_f.channel, rounds * q, batch, codec="int8")
+    comms.validate_measured(comms.RoundComms(up // (rounds * q),
+                                             down // (rounds * q)),
+                            batch, codec="int8")
+    log(f"[main] loss {losses[0]:.4f} -> {losses[-1]:.4f}; bytes up "
+        f"{res_f.bytes_up} down {res_f.bytes_down} (exact, = analytic)")
+
+    before = dict(launches)
+    tr_u, res_u, ms_u = run(fused=False)
+    if (fused_round.defended_encode.launches, zo_update.zo_update.launches) \
+            != (before["defended_encode"], before["zo_update"]):
+        raise AssertionError("the unfused run launched a kernel")
+    if [h for _, h in res_u.history] != losses:
+        raise AssertionError("fused losses != unfused losses")
+    for m in range(q):
+        for k in tr_f.party_w[m]:
+            if not bitwise_equal(tr_f.party_w[m][k], tr_u.party_w[m][k]):
+                raise AssertionError(f"party {m} {k}: fused != unfused")
+    for k in tr_f.server.w0:
+        if not bitwise_equal(tr_f.server.w0[k], tr_u.server.w0[k]):
+            raise AssertionError(f"server {k}: fused != unfused")
+    log(f"[main] unfused (plain torch on the card): {ms_u:.2f} ms per "
+        "party round; losses and final params bitwise equal to fused")
+
+    # the card against the CPU (the CPU port is held to the jax
+    # reference by tests/test_torch_host.py): a small defended problem
+    rng = np.random.default_rng(0)
+    Xs = rng.random((256, 32)).astype(np.float32)
+    ys = rng.integers(0, 10, 256).astype(np.int32)
+    small = PaperFCNModel(PaperFCNConfig(num_features=32, num_parties=2,
+                                         party_hidden=16))
+    cfg = VFLConfig(num_parties=2, direction="rademacher", mu=5e-2,
+                    lr_party=2e-2, lr_server=1e-2, codec="int8",
+                    dp=DPConfig(noise_multiplier=1.3, clip=1.0), fused=True)
+    h_dev = [h for _, h in HostAsyncTrainer(
+        small, cfg, Xs, ys, batch_size=16, seed=0).run_serial(4).history]
+    h_cpu = [h for _, h in HostAsyncTrainer(
+        small, cfg, Xs, ys, batch_size=16, seed=0,
+        device="cpu").run_serial(4).history]
+    gap = max(abs(a - b) for a, b in zip(h_dev, h_cpu))
+    # f32 matmul and reduction orders differ between the card and the CPU,
+    # by ulps of c; should one ulp flip an int8 stochastic rounding, that
+    # c moves one quantum (~0.04 with DP noise) and the loss ~3e-4. A wrong
+    # key, bit or noise draw moves losses by ~1e-1.
+    if not gap < 1e-3:
+        raise AssertionError(f"card vs CPU losses differ by {gap}")
+    log(f"[main] card vs CPU, small defended FCN, 8 updates: max loss gap "
+        f"{gap:.3g}")
+
+    # undefended training run, as examples/federated_fcn_mnist.py
+    (Xu, yu), _ = make_paper_dataset("D7_MNIST", scale=0.01)
+    Xu, _ = pad_party_views(vertical_partition(Xu, q)[0])
+    vfl = VFLConfig(
+        num_parties=q, direction="rademacher", mu=1e-3, lr_party=2e-2,
+        lr_server=2e-2 / q, codec="int8", fused=True)
+    tr = HostAsyncTrainer(model, vfl, Xu, yu, batch_size=64, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tr.run_serial(150)
+    torch.cuda.synchronize()
+    ms_t = (time.perf_counter() - t0) * 1e3 / (150 * q)
+    lt = [h for _, h in res.history]
+    first, last = float(np.mean(lt[:50])), float(np.mean(lt[-50:]))
+    log(f"[train] {len(lt)} updates, loss {first:.3f} -> {last:.3f}, "
+        f"{ms_t:.2f} ms per party round, bytes up {res.bytes_up} down "
+        f"{res.bytes_down}")
+    if not last < first:
+        raise AssertionError("undefended training loss did not fall")
+    return launches, {"fused_ms_per_round": ms_f,
+                      "unfused_ms_per_round": ms_u,
+                      "train_ms_per_round": ms_t,
+                      "train_loss_first50": first,
+                      "train_loss_last50": last}
+
+
+def d7_data(q):
+    from repro_torch.data.synthetic import make_paper_dataset
+    from repro_torch.data.vertical import pad_party_views, vertical_partition
+    (X, y), spec = make_paper_dataset("D7_MNIST", scale=1.0)
+    Xp, pad = pad_party_views(vertical_partition(X, q)[0])
+    return Xp, y, spec, pad
+
+
+def profile_phase(dev):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import PaperFCNConfig
+    from repro_torch.core.async_host import HostAsyncTrainer
+    from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.utils import prng
+
+    q, batch = 8, 2048
+    Xp, y, spec, _ = d7_data(q)
+    model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
+                                         num_classes=spec.classes,
+                                         num_parties=q))
+    HostAsyncTrainer(model, d7_config(True, dp=True), Xp, y,
+                     batch_size=batch, seed=1).run_serial(1)
+    tr = HostAsyncTrainer(model, d7_config(True, dp=True), Xp, y,
+                          batch_size=batch, seed=0)
+
+    plain_bits = prng.bits
+
+    def spanned_bits(*args):
+        with record_function("prng.bits"):
+            return plain_bits(*args)
+
+    prng.bits = spanned_bits        # every caller looks it up on the module
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_serial(2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prng.bits = plain_bits
+    # the profiler mirrors each record_function span onto the device
+    # timeline as an annotation; those are neither launches nor busy time
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key != "prng.bits"]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    launches = sum(e.count for e in dev_events)
+    top = sorted(dev_events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+
+    def kernels_under(e):
+        """(device launches, device us) of ``e`` and everything it called."""
+        n, us = len(e.kernels), sum(k.duration for k in e.kernels)
+        for child in e.cpu_children:
+            cn, cus = kernels_under(child)
+            n, us = n + cn, us + cus
+        return n, us
+
+    spans = [e for e in prof.events() if e.name == "prng.bits"
+             and e.device_type == DeviceType.CPU]
+    under = [kernels_under(e) for e in spans]
+    bits_launches = sum(n for n, _ in under)
+    bits_host_ms = sum(e.cpu_time_total for e in spans) / 1e3
+    log(json.dumps({"profile": {
+        "party_rounds": 2 * q, "wall_ms": wall_ms,
+        "ms_per_party_round": wall_ms / (2 * q),
+        "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+        "device_launches": launches,
+        "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3,
+                           e.count] for e in top],
+        "bits_calls_per_party_round": len(spans) / (2 * q),
+        "bits_host_ms": bits_host_ms,
+        "bits_host_share": bits_host_ms / wall_ms,
+        "bits_device_launches": bits_launches,
+        "bits_launch_share": bits_launches / launches,
+        "bits_device_ms": sum(us for _, us in under) / 1e3,
+        "bits_call_ms_12544": time_ms(
+            lambda: plain_bits((1, 2), (12544,), dev))}}))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {card} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t = time.perf_counter()
+    built = build.build_all()
+    log(f"[build] {built} wall {time.perf_counter() - t:.1f}s")
+    for name, (_, text) in build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas {name}] {line.strip()}")
+
+    if "--profile" in sys.argv[1:]:
+        profile_phase(dev)
+        return 0
+    timed, worst = kernel_phase(dev)
+    launches, main_stats = main_path_phase(dev)
+    log(json.dumps({"main_path": main_stats}))
+
+    sources = {
+        "defended_encode": ("src/repro_torch/kernels/csrc/defended_encode.cu",
+                            "src/repro/kernels/fused_round.py:171"),
+        "zo_update": ("src/repro_torch/kernels/csrc/zo_update.cu",
+                      "src/repro/kernels/zo_update.py:69"),
+    }
+    kernels = [{"name": name, "route": "cuda", "source": src_path,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": worst[name], "ms": timed[name]["kernel_ms"],
+                "plain_ms": timed[name]["plain_ms"],
+                "bound_ms": timed[name]["bound_ms"],
+                "bound_by": timed[name]["bound_by"], "library_ms": None}
+               for name, (src_path, replaces) in sources.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

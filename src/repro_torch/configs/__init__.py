@@ -1,0 +1,5 @@
+"""Configs of the port (copies of the reference's framework-free ones)."""
+from repro_torch.configs.base import DPConfig, VFLConfig
+from repro_torch.configs.paper_models import PaperFCNConfig, PaperLRConfig
+
+__all__ = ["DPConfig", "VFLConfig", "PaperFCNConfig", "PaperLRConfig"]

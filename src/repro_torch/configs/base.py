@@ -1,0 +1,134 @@
+"""Config dataclasses of the port: the paper's framework knobs and the
+DP defense, copied from the reference's configs/base.py with the same
+fields, defaults, validation and ``enabled``/``resolved`` semantics.
+The RDP accountant that calibrates ``noise_multiplier`` from a target
+epsilon is not ported yet, so a defended run sets ``noise_multiplier``
+explicitly.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class DPConfig:
+    """Differential privacy at the codec seam (dp/mechanisms.py).
+
+    The defended release is every party->server payload (the c function
+    values): each per-sample entry is clipped to ``[-clip, clip]`` and
+    perturbed with mechanism noise of scale ``noise_multiplier * clip``
+    BEFORE the up-link codec runs — DPZV-style, at the single
+    ``ZOExchange.encode_up`` seam every executor shares.
+
+    ``epsilon`` is the per-party (eps, delta)-DP target over a whole run
+    (parallel composition across parties: feature blocks are disjoint,
+    so each party's guarantee depends only on its OWN releases);
+    ``epsilon=inf`` turns the subsystem transparently off (no clip, no
+    noise — bit-identical to ``dp=None``). ``noise_multiplier`` is the
+    resolved noise scale in clip units. The port has no accountant yet,
+    so a defended run sets it explicitly; the exchange refuses to run
+    with an uncalibrated epsilon target.
+    """
+    epsilon: Optional[float] = None     # flag: --dp-epsilon — target eps
+    #                                     over the run (inf = off)
+    delta: float = 1e-5                 # flag: --dp-delta
+    clip: Optional[float] = None        # flag: --dp-clip — REQUIRED when
+    #                                     enabled: |c_i| <= clip
+    mechanism: str = "gaussian"         # internal-only: gaussian (RDP) |
+    #                                     laplace (pure-DP); library/bench
+    #                                     knob, the CLI defense is gaussian
+    noise_multiplier: Optional[float] = None   # internal-only: sigma (noise
+    #                                     std = sigma*clip) — set explicitly
+    #                                     until the accountant is ported
+    sample_rate: Optional[float] = None  # internal-only: Poisson-subsampling
+    #                                      rate q of the minibatch draw;
+    #                                      opt-in: None means account WITHOUT
+    #                                      amplification (the pre-existing,
+    #                                      conservative curve)
+
+    def __post_init__(self):
+        if self.mechanism not in ("gaussian", "laplace"):
+            raise ValueError(
+                f"unknown DP mechanism {self.mechanism!r}; "
+                f"have gaussian, laplace")
+        if self.sample_rate is not None:
+            if not 0.0 < self.sample_rate <= 1.0:
+                raise ValueError(
+                    f"sample_rate must be in (0, 1], got {self.sample_rate}")
+            if self.mechanism != "gaussian":
+                raise ValueError(
+                    "subsampled amplification is only implemented for the "
+                    "gaussian mechanism (MTZ19-style RDP bound); drop "
+                    "sample_rate or use mechanism='gaussian'")
+        if self.epsilon is not None and self.epsilon <= 0:
+            raise ValueError(f"epsilon must be > 0, got {self.epsilon}")
+        if not 0.0 < self.delta < 1.0:
+            raise ValueError(f"delta must be in (0, 1), got {self.delta}")
+        if self.noise_multiplier is not None and self.noise_multiplier < 0:
+            raise ValueError("noise_multiplier must be >= 0")
+        import math
+        if (self.noise_multiplier == 0.0 and self.epsilon is not None
+                and math.isfinite(self.epsilon)):
+            raise ValueError(
+                "noise_multiplier=0 (clip-only) cannot meet a finite "
+                "epsilon target — drop the epsilon or supply real noise")
+        if self.enabled and self.clip is None:
+            raise ValueError(
+                "DP epsilon/noise without a clip bound is incoherent: the "
+                "mechanism's sensitivity IS the clip — set DPConfig.clip")
+        if self.clip is not None and self.clip <= 0:
+            raise ValueError(f"clip must be > 0, got {self.clip}")
+
+    @property
+    def enabled(self) -> bool:
+        """Whether any defense actually applies (eps=inf means OFF)."""
+        import math
+        if self.noise_multiplier is not None:
+            return True
+        return self.epsilon is not None and math.isfinite(self.epsilon)
+
+    @property
+    def resolved(self) -> bool:
+        """Whether the noise scale is known (ready to run)."""
+        return not self.enabled or self.noise_multiplier is not None
+
+
+@dataclass(frozen=True)
+class VFLConfig:
+    """The paper's framework knobs (Section 3)."""
+    num_parties: int = 8          # flag: --parties — q
+    party_hidden: int = 128       # internal-only: width of the party tower
+    #                               F_m (--arch sizes the models)
+    party_layers: int = 2         # internal-only: depth of F_m (paper:
+    #                               2-layer FCN; sized by --arch)
+    direction: str = "gaussian"   # internal-only: gaussian (AsyREVEL-Gau) |
+    #                               uniform (-Uni) | rademacher (fused-kernel
+    #                               seed replay); library/bench knob
+    mu: float = 1e-3              # smoothing parameter mu_m (--mu)
+    lr_party: float = 1e-3        # flag: --lr — eta_m
+    lr_server: float = 1e-3 / 8   # flag: --lr — eta_0 = eta / q (paper
+    #                               setting, derived from the same flag)
+    max_delay: int = 4            # internal-only: tau (Assumption 4) for
+    #                               the thread executor; the TCP runtime's
+    #                               bound is RuntimeConfig.max_staleness
+    activation_probs: Optional[Tuple[float, ...]] = None  # internal-only:
+    #                               p_m (Assumption 3); bench schedule knob
+    seed_replay: bool = False     # internal-only: MeZO-style u regeneration
+    #                               (beyond-paper); implied by --fused
+    num_directions: int = 1       # internal-only: directions averaged per
+    #                               estimate (variance reduction,
+    #                               beyond-paper; paper cites Liu et al.
+    #                               2018); bench/library knob
+    lam: float = 1e-4             # internal-only: regularizer weight lambda
+    #                               (paper constant)
+    perturb_server: bool = True   # internal-only: also ZO-update w_0
+    #                               (Eq. 17); losslessness bench toggles it
+    codec: str = "f32"            # up-link payload codec for the c values
+    #                               (core/exchange.py: f32|bf16|int8; --codec)
+    dp: Optional[DPConfig] = None  # flag: --dp-epsilon — clip-then-noise
+    #                               defense at the codec seam (dp/mechanisms.py;
+    #                               None = undefended)
+    fused: bool = False           # route releases through the fused
+    #                               kernels/fused_round fast path (bitwise
+    #                               equal to the unfused seam; --fused)

@@ -1,0 +1,275 @@
+"""Host executor — the paper's party/server round on one process.
+
+``run_serial`` is the deterministic reference schedule: round-robin over
+the parties on one thread. Each party round samples a minibatch of the
+party's PRIVATE feature slice, computes (c, c_hat), sends both up, gets
+(h, h_bar) back, and updates its local block. The server holds w0 and
+the table of the latest c of every party on every sample (Algorithm 1),
+decodes the up-link, answers with the two batch-mean losses, and takes
+its own Eq. 17 step.
+
+The message round (perturbation, up-link codec, coefficient, update
+apply) is core/exchange.py's ZOExchange, including the optional DP
+defense and the ``fused`` path that runs the hand-written CUDA kernels
+(kernels/fused_round.py). Every boundary crossing is a typed
+core/wire.py Message through the trainer's Channel, and the byte counters
+are measured twice independently: by the exchange's CommsMeter at the
+codec and by the channel per message kind.
+
+The party math is three module-level helpers (prepare -> messages ->
+apply), as in the reference, so a later transport can run them with a
+socket in between. The threaded ``run_async``/``run_sync`` executors and
+the tracing spans are not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import VFLConfig
+from repro_torch.core.exchange import CommsMeter, ZOExchange, to_host
+from repro_torch.core.vfl import VFLModel
+from repro_torch.core.wire import (SERVER, Channel, InMemoryChannel, Message,
+                                   party, party_index)
+from repro_torch.utils import prng
+from repro_torch.utils.device import resolve_device
+
+
+@dataclass
+class HostRunResult:
+    history: list = field(default_factory=list)   # (wallclock_s, loss)
+    updates: int = 0
+    comms: CommsMeter = field(default_factory=CommsMeter)
+
+    # per ROUND: up = the c payload plus one c_hat, down = (h, h_bar)
+    @property
+    def bytes_up(self) -> int:
+        return self.comms.up_bytes
+
+    @property
+    def bytes_down(self) -> int:
+        return self.comms.down_bytes
+
+
+def _serve(model, vfl, ex, w0, cs, cs_hat, y, key):
+    """Algorithm-1 server side; Eq. 17 routes through the exchange."""
+    h = model.server_forward(w0, cs, y)
+    h_bar = model.server_forward(w0, cs_hat, y)
+    if vfl.perturb_server:
+        w0 = ex.server_update(w0, key, h,
+                              lambda w0p: model.server_forward(w0p, cs, y),
+                              vfl.lr_server)
+    return h, h_bar, w0
+
+
+def _party_local(model, ex, w_m, x_m, key, m):
+    """Perturb + both local evals + both regularizers."""
+    w_p, u = ex.perturb(w_m, key)
+    c = model.party_forward(w_m, x_m, m)
+    c_hat = model.party_forward(w_p, x_m, m)
+    return c, c_hat, model.regularizer(w_m), model.regularizer(w_p), u
+
+
+# ---- the party-side round, split at the wire boundary ---------------------
+
+def trainer_keys(seed: int, q: int):
+    """The key split every executor shares: (server_init, party_inits[q],
+    server_perturbation_stream)."""
+    keys = prng.split(prng.key(seed), q + 2)
+    return keys[0], [keys[m + 1] for m in range(q)], keys[q + 1]
+
+
+def party_rng_seed(seed: int, m: int) -> int:
+    """Party m's private numpy stream (batch sampling + round keys)."""
+    return seed * 97 + m
+
+
+def draw_round(rng: np.random.Generator, n: int, batch_size: int):
+    """One round's (batch indices, perturbation key) — two draws, in this
+    exact order."""
+    idx = rng.integers(0, n, batch_size)
+    key = prng.key(rng.integers(1 << 31))
+    return idx, key
+
+
+@dataclass
+class PartyRoundPrep:
+    """Everything party m derives locally for one round: the encoded
+    up-link payloads (numpy, on the host) plus the private state the
+    apply step needs."""
+
+    wire_c: object
+    wire_hats: list
+    reg0: float
+    regs: list
+    us: object            # the u tree of the round's direction
+
+
+def party_round_prepare(model, vfl: VFLConfig, ex: ZOExchange, w_m, X,
+                        idx, key, m: int) -> PartyRoundPrep:
+    """Perturb/evaluate locally and encode both up-link payloads (the
+    compute half of Algorithm 1's party round — no wire crossing). ``X``
+    is the padded feature matrix as a tensor on the party's device. With
+    ``ex.fused`` each encode is one defended_encode kernel and the
+    perturbation is the zo_update kernel."""
+    idx_t = torch.as_tensor(np.asarray(idx), device=X.device)
+    x_m = model.slice_features(X[idx_t], m)
+    c, c_hat, reg0, reg1, u = _party_local(model, ex, w_m, x_m, key, m)
+    wire_c = to_host(ex.encode_up(c, prng.fold_in(key, 1)))
+    wire_c_hat = to_host(ex.encode_up(c_hat, prng.fold_in(key, 2)))
+    return PartyRoundPrep(wire_c, [wire_c_hat], float(reg0), [float(reg1)],
+                          u)
+
+
+def party_round_messages(channel: Channel, m: int, rnd: int, idx,
+                         prep: PartyRoundPrep):
+    """Route the round's up-link through the channel and return the
+    delivered Messages."""
+    idx = np.asarray(idx)
+    me = party(m)
+    msg_c = channel.send(Message.make(
+        "c_up", me, SERVER, rnd, prep.wire_c, meta={"idx": idx}))
+    msg_hats = tuple(channel.send(Message.make(
+        "c_hat_up", me, SERVER, rnd, w, meta={"idx": idx, "dir": k}))
+        for k, w in enumerate(prep.wire_hats))
+    return msg_c, msg_hats
+
+
+def party_round_apply(vfl: VFLConfig, ex: ZOExchange, w_m,
+                      prep: PartyRoundPrep, scalars):
+    """Form the two-point coefficient from the received loss_down scalars
+    and apply the block update (Algorithm 1 line 7). The coefficient is a
+    float64 Python scalar; it becomes f32 where the reference's jitted
+    apply receives it."""
+    h, h_bar = scalars
+    coeff = ex.coefficient(h_bar + vfl.lam * prep.regs[0],
+                           h + vfl.lam * prep.reg0)
+    return ex.apply_direction(w_m, prep.us, np.float32(coeff), vfl.lr_party)
+
+
+class _Server:
+    """Holds w0 and the latest c table. Receives the party's typed
+    up-link Messages, decodes through the shared exchange, and replies
+    with a loss_down Message through the channel."""
+
+    def __init__(self, model: VFLModel, vfl: VFLConfig, y, key,
+                 ex: ZOExchange, pert_key, channel: Channel, device,
+                 w0=None):
+        self.model = model
+        self.vfl = vfl
+        self.ex = ex
+        self.channel = channel
+        self.device = device
+        self.y = y
+        self.w0 = w0 if w0 is not None else model.init_server(key, device)
+        # the server's perturbation stream derives from the TRAINER seed
+        # (folded per update in handle)
+        self.pert_key = pert_key
+        # latest function value of each party on each sample ("received
+        # previously", Algorithm 1), warm-started to zeros
+        self.c_table = np.zeros((len(y), model.num_parties), np.float32)
+        self.losses = HostRunResult(comms=ex.meter)
+        self.t0 = time.perf_counter()
+
+    def handle(self, msg_c: Message, msg_c_hats):
+        """Algorithm 1 lines 8-11: the delivered c_up and c_hat_up
+        Messages in, the delivered loss_down Message out."""
+        if isinstance(msg_c_hats, Message):
+            msg_c_hats = (msg_c_hats,)
+        m = party_index(msg_c.sender)
+        idx = np.asarray(msg_c.meta["idx"])
+        rnd = self.losses.updates
+        key = prng.fold_in(self.pert_key, rnd)
+        c = np.asarray(self.ex.decode_up(msg_c.payload), np.float32)
+        c_hat = np.asarray(self.ex.decode_up(msg_c_hats[0].payload),
+                           np.float32)
+        self.c_table[idx, m] = c
+        cs = torch.from_numpy(self.c_table[idx]).to(self.device)  # stale others
+        cs_hat = cs.clone()
+        cs_hat[:, m] = torch.from_numpy(c_hat).to(self.device)
+        y = self.y[torch.as_tensor(idx, device=self.device)]
+        h, h_bar, self.w0 = _serve(self.model, self.vfl, self.ex, self.w0,
+                                   cs, cs_hat, y, key)
+        h, h_bar = float(h), float(h_bar)
+        self.losses.updates += 1
+        self.losses.history.append((time.perf_counter() - self.t0, h))
+        self.ex.meter.add_round()
+        payload = self.ex.send_down(h, h_bar)      # meters the bytes
+        return self.channel.send(
+            Message.make("loss_down", SERVER, msg_c.sender, rnd, payload))
+
+
+class HostAsyncTrainer:
+    """The deterministic round-robin schedule (``run_serial``) of the
+    reference's host executor, on one device.
+
+    ``device=None`` is the GPU and raises without one; pass
+    ``device="cpu"`` to run the plain versions on the CPU. Initial params
+    come from the trainer keys unless ``party_params`` (a list of q param
+    dicts) or ``server_params`` are given, e.g. from
+    ``interop.params_from_numpy``."""
+
+    def __init__(self, model: VFLModel, vfl: VFLConfig, X, y,
+                 batch_size: int = 32, seed: int = 0,
+                 channel: Channel | None = None, device=None,
+                 party_params=None, server_params=None):
+        self.device = resolve_device(device)
+        self.model, self.vfl = model, vfl
+        self.X = torch.tensor(np.asarray(X, np.float32), device=self.device)
+        y = np.asarray(y)
+        self.n = len(y)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.channel = channel if channel is not None else InMemoryChannel()
+        self.exchange = ZOExchange.from_config(vfl, meter=CommsMeter())
+        q = model.num_parties
+        server_key, party_keys, pert_key = trainer_keys(seed, q)
+        self.server = _Server(model, vfl, torch.as_tensor(y, device=self.device),
+                              server_key, self.exchange, pert_key,
+                              self.channel, self.device, w0=server_params)
+        self.party_w = (list(party_params) if party_params is not None else
+                        [model.init_party(party_keys[m], m, self.device)
+                         for m in range(q)])
+        self._party_round = [0] * q
+        self._spent = False
+
+    def _start_run(self):
+        if self._spent:
+            raise RuntimeError(
+                "this HostAsyncTrainer already ran; construct a fresh one "
+                "(history/meters are run-relative)")
+        self._spent = True
+        self.server.t0 = time.perf_counter()
+
+    def party_step(self, m: int, idx: np.ndarray, key):
+        """One Algorithm-1 round for party m on the given batch: perturb/
+        eval locally, encode + send c_up and c_hat_up, receive loss_down,
+        form the coefficient, apply the block update."""
+        rnd = self._party_round[m]
+        self._party_round[m] += 1
+        prep = party_round_prepare(self.model, self.vfl, self.exchange,
+                                   self.party_w[m], self.X, idx, key, m)
+        msg_c, msg_hats = party_round_messages(self.channel, m, rnd, idx,
+                                               prep)
+        down = self.server.handle(msg_c, msg_hats)
+        self.party_w[m] = party_round_apply(self.vfl, self.exchange,
+                                            self.party_w[m], prep,
+                                            down.scalars())
+
+    def run_serial(self, rounds: int) -> HostRunResult:
+        """Deterministic schedule: each round visits every party in index
+        order."""
+        self._start_run()
+        q = self.model.num_parties
+        rngs = [np.random.default_rng(party_rng_seed(self.seed, m))
+                for m in range(q)]
+        for _ in range(rounds):
+            for m in range(q):
+                idx, key = draw_round(rngs[m], self.n, self.batch_size)
+                self.party_step(m, idx, key)
+        # zvlint: disable=lock-discipline — single-threaded schedule; the
+        # port's server has no lock (the threaded executors are not ported)
+        return self.server.losses

@@ -1,0 +1,168 @@
+"""The VFL composite model — problem (P), Section 3.1.
+
+    f_i(w_0, w) = F_0(w_0, c_{i,1}, ..., c_{i,q}; y_i) + lam * sum_m g(w_m),
+    c_{i,m} = F_m(w_m; x_{i,m})
+
+Each party m privately holds a vertical feature slice x_{i,m} and a
+black-box local model F_m; the server holds labels and the global model
+F_0. Only the c values (party -> server) and scalar losses (server ->
+party) ever cross the boundary.
+
+  * PaperLRModel  — generalized linear model, Eq. (22).
+  * PaperFCNModel — party towers are 2-layer FCNs (d_m x 128, 128 x 1,
+    ReLU) with scalar output; the server is a (q x 10) FC + softmax CE.
+
+Params are dicts of tensors; ``init_*`` take the device to build them on.
+The towers' matrix products are plain ``torch.matmul`` (the reference
+leaves them to XLA, outside any kernel).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.paper_models import PaperFCNConfig, PaperLRConfig
+from repro_torch.models.layers import cross_entropy_loss, dense_init
+from repro_torch.utils import prng, trees
+
+
+def split_features(d_total: int, q: int) -> list[tuple[int, int]]:
+    """Vertical partition: q nearly-equal contiguous feature blocks."""
+    base, rem = divmod(d_total, q)
+    out, start = [], 0
+    for m in range(q):
+        size = base + (1 if m < rem else 0)
+        out.append((start, size))
+        start += size
+    return out
+
+
+def pad_features(x: torch.Tensor, d_total: int, q: int) -> torch.Tensor:
+    """Pad feature rows to q * ceil(d/q) so every party block has the same
+    width."""
+    target = -(-d_total // q) * q
+    if x.shape[-1] == target:
+        return x
+    return torch.nn.functional.pad(x, (0, target - x.shape[-1]))
+
+
+def nonconvex_reg(tree) -> torch.Tensor:
+    """g(w) = sum_j w_j^2 / (1 + w_j^2)  (Eq. 22's regularizer)."""
+    tot = None
+    for x in trees.leaves(tree):
+        x2 = torch.square(x.float())
+        s = torch.sum(x2 / (1.0 + x2))
+        tot = s if tot is None else tot + s
+    return tot
+
+
+class VFLModel:
+    """Interface. c values are (B,) per party."""
+
+    num_parties: int
+
+    def init_party(self, key, m: int, device):
+        raise NotImplementedError
+
+    def init_server(self, key, device):
+        raise NotImplementedError
+
+    def party_forward(self, w_m, x_m, m: int):
+        """F_m: private features -> c_m."""
+        raise NotImplementedError
+
+    def server_forward(self, w0, cs, y):
+        """F_0: the (B, q) table of c values + labels -> scalar loss."""
+        raise NotImplementedError
+
+    def server_predict(self, w0, cs):
+        """F_0's decision from a received c table (B, q)."""
+        raise NotImplementedError
+
+    def regularizer(self, w_m):
+        return 0.0                       # g = 0
+
+    def slice_features(self, x, m: int):
+        raise NotImplementedError
+
+    # --- conveniences -----------------------------------------------------
+    def init_parties_stacked(self, key, device):
+        keys = prng.split(key, self.num_parties)
+        per = [self.init_party(keys[m], m, device)
+               for m in range(self.num_parties)]
+        return trees.tree_map(lambda *xs: torch.stack(xs), *per)
+
+    def all_party_outputs(self, stacked_w, x):
+        """c_m for every party, stacked (B, q)."""
+        return torch.stack([
+            self.party_forward(trees.tree_map(lambda a: a[m], stacked_w),
+                               self.slice_features(x, m), m)
+            for m in range(self.num_parties)], dim=1)
+
+    def predict(self, w0, stacked_w, x):
+        return self.server_predict(w0, self.all_party_outputs(stacked_w, x))
+
+
+class PaperLRModel(VFLModel):
+    """Black-box federated nonconvex logistic regression (Eq. 22)."""
+
+    def __init__(self, cfg: PaperLRConfig):
+        self.cfg = cfg
+        self.num_parties = cfg.num_parties
+        self.pad = -(-cfg.num_features // cfg.num_parties)
+
+    def init_party(self, key, m: int, device):
+        return {"w": torch.zeros((self.pad,), device=device)}
+
+    def init_server(self, key, device):
+        return {"b": torch.zeros((), device=device)}
+
+    def slice_features(self, x, m: int):
+        return x[..., m * self.pad:(m + 1) * self.pad]
+
+    def party_forward(self, w_m, x_m, m: int):
+        return x_m @ w_m["w"]             # (B,)
+
+    def server_forward(self, w0, cs, y):
+        z = torch.sum(cs, dim=1) + w0["b"]
+        return torch.mean(torch.log1p(torch.exp(-y * z)))
+
+    def regularizer(self, w_m):
+        return nonconvex_reg(w_m)
+
+    def server_predict(self, w0, cs):
+        return torch.sign(torch.sum(cs, dim=1) + w0["b"])
+
+
+class PaperFCNModel(VFLModel):
+    """Black-box federated neural network (Section 5.1)."""
+
+    def __init__(self, cfg: PaperFCNConfig):
+        self.cfg = cfg
+        self.num_parties = cfg.num_parties
+        self.pad = -(-cfg.num_features // cfg.num_parties)
+
+    def init_party(self, key, m: int, device):
+        k1, k2 = prng.split(key)
+        h = self.cfg.party_hidden
+        return {"w1": dense_init(k1, self.pad, h, device),
+                "b1": torch.zeros((h,), device=device),
+                "w2": dense_init(k2, h, 1, device),
+                "b2": torch.zeros((1,), device=device)}
+
+    def init_server(self, key, device):
+        return {"w": dense_init(key, self.num_parties, self.cfg.num_classes,
+                                device),
+                "b": torch.zeros((self.cfg.num_classes,), device=device)}
+
+    def slice_features(self, x, m: int):
+        return x[..., m * self.pad:(m + 1) * self.pad]
+
+    def party_forward(self, w_m, x_m, m: int):
+        h = torch.relu(x_m @ w_m["w1"] + w_m["b1"])
+        return (h @ w_m["w2"] + w_m["b2"])[..., 0]     # (B,)
+
+    def server_forward(self, w0, cs, y):
+        return cross_entropy_loss(cs @ w0["w"] + w0["b"], y)
+
+    def server_predict(self, w0, cs):
+        return torch.argmax(cs @ w0["w"] + w0["b"], dim=-1)

@@ -1,0 +1,1 @@
+"""Datasets of the port (numpy copies of the reference's generators)."""

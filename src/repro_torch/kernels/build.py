@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on its own into a shared
+library with a plain C interface, ``build/kernels/lib<name>-<hash>.so``
+at the repository root, and loaded with ``ctypes``. Nothing is built when a module is
+imported: the first launch builds what it needs, and ``build_all``
+starts one ``nvcc`` per source, all at once.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so the compiler
+never contracts a multiply and an add the kernel did not write as an FMA
+(the kernels also spell every rounding with ``__f*_rn`` intrinsics).
+``CUDA_HOME`` (default ``/usr/local/cuda``) locates ``nvcc`` when it is
+not on PATH. The hash in the library's name covers the source, the flags
+and ``nvcc --version``, so an edited kernel, a changed flag or another
+toolchain never loads a library built for something else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("defended_encode", "zo_update")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+_LOADED: dict = {}
+BUILD_LOG: dict = {}        # name -> (seconds, nvcc's stdout + stderr)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+@functools.cache
+def _toolchain() -> bytes:
+    """What a built library depends on besides its source: the flags and
+    the compiler's version banner."""
+    version = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             check=True).stdout
+    return "\0".join(NVCC_FLAGS).encode() + b"\0" + version
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(_toolchain())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    out = _target(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            tmp, out, time.perf_counter())
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out, t0 = job
+    stdout, stderr = proc.communicate()
+    BUILD_LOG[name] = (time.perf_counter() - t0, stdout + stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{stdout}{stderr}")
+    os.replace(tmp, out)
+
+
+def build_all(names=KERNELS) -> dict:
+    """Compile every named kernel that is not built yet, in parallel.
+    Returns {name: build seconds} for the ones compiled now."""
+    jobs = {n: _start(n) for n in names}
+    for n, job in jobs.items():
+        if job is not None:
+            _finish(n, job)
+    return {n: BUILD_LOG[n][0] for n, job in jobs.items() if job is not None}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        _declare(name, lib)
+        _LOADED[name] = lib
+    return lib
+
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "zo_update": {
+        # w, bits, scale, out, n, stream
+        "zo_update_f32": (_P, _P, ctypes.c_float, _P, ctypes.c_longlong, _P),
+    },
+    "defended_encode": {
+        # c, dp_bits, has_dp, clip, noise_scale, mechanism, out_bf16,
+        # out, n, stream
+        "defended_encode_cast": (_P, _P, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 _P, ctypes.c_longlong, _P),
+        # c, dp_bits, rnd_bits, has_dp, clip, noise_scale, mechanism,
+        # amax_word, q, scale_out, n, stream
+        "defended_encode_int8": (_P, _P, _P, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_int, _P, _P, _P,
+                                 ctypes.c_longlong, _P),
+    },
+}
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int

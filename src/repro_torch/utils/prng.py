@@ -1,0 +1,150 @@
+"""PRNG plumbing: jax's threefry2x32 keys and raw bit streams, in torch.
+
+Every parity pin of the reference stands on ``jax.random`` bits, so the
+port reproduces them rather than swapping in ``torch.Generator``. A key
+is a ``(k0, k1)`` tuple of Python ints, the two uint32 words of a jax
+key. Key derivation (``key``/``split``/``fold_in``/``fold_name``) is
+plain integer arithmetic on the host and never touches a device; only
+``bits`` builds a tensor, on the device it is asked for.
+
+The semantics are those of ``jax_threefry_partitionable=True`` (jax
+0.9.0's default, which tests/test_torch_prng.py pins against):
+
+  key(seed)        (0, seed)
+  split(key, n)    [threefry2x32(key, hi32(i), lo32(i)) for i < n]
+  fold_in(key, d)  threefry2x32(key, 0, d)
+  bits(key, shape) x0 ^ x1 of threefry2x32(key, hi32(i), lo32(i)) over the
+                   row-major flat index i
+
+Tensors hold uint32 values in int64 (masked to 32 bits) while they are
+being mixed, so no arithmetic relies on ``torch.uint32`` support.
+``bits`` returns the stream as int32 tensors: the same 32-bit patterns
+the kernels read as ``uint32``.
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+
+import torch
+
+from repro_torch.utils import xla_math
+
+Key = tuple
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """The 20-round threefry2x32 block on (x0, x1): Python ints or int64
+    tensors holding uint32 values. Key injection after every 4 rounds."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for g in range(5):
+        for r in _ROTATIONS[g % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(g + 1) % 3]) & _M32
+        x1 = (x1 + ks[(g + 2) % 3] + g + 1) & _M32
+    return x0, x1
+
+
+def key(seed: int) -> Key:
+    """== jax.random.key(seed) for a 32-bit seed."""
+    seed = int(seed)
+    if not -(1 << 31) <= seed < (1 << 32):
+        raise ValueError(f"seed {seed} does not fit 32 bits")
+    return (0, seed & _M32)
+
+
+def split(k: Key, n: int = 2) -> list:
+    """== jax.random.split(k, n), as a list of n keys."""
+    return [_threefry2x32(k[0], k[1], i >> 32, i & _M32) for i in range(n)]
+
+
+def fold_in(k: Key, data: int) -> Key:
+    """== jax.random.fold_in(k, data); data is taken as uint32."""
+    return _threefry2x32(k[0], k[1], 0, int(data) & _M32)
+
+
+def fold_name(k: Key, name: str) -> Key:
+    """Deterministically fold a string into a key (sha256, first 4 bytes
+    little-endian) -- the reference's utils/prng.fold_name."""
+    h = int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "little")
+    return fold_in(k, h)
+
+
+def bits(k: Key, shape, device) -> torch.Tensor:
+    """== jax.random.bits(k, shape, uint32), as int32 bit patterns."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = _threefry2x32(k[0], k[1], i >> 32, i & _M32)
+    return (x0 ^ x1).to(torch.int32).reshape(shape)
+
+
+# -------------------------------------------- bits -> distribution chains --
+# Each is bitwise equal to its jax.random counterpart on the bits of the
+# same key (tests/test_torch_prng.py). Every rounding point is an eager
+# torch op of its own, so nothing contracts.
+
+_F32_ONE = 0x3F800000
+# the open-interval lower bound jax.random uses before erf_inv / log1p;
+# -1 + epsneg(f32) and nextafter(-1, 0) are the same float
+_OPEN_LO = -1.0 + 2.0 ** -24
+# f32(1 - _OPEN_LO) rounds to exactly 2, so u01 * span is exact
+_OPEN_SPAN = 2.0
+_SQRT2 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
+
+
+def uniform_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """== jax.random.uniform: 9-bit shift fills the f32 mantissa, bitcast
+    to [1, 2), subtract 1."""
+    u = b.to(torch.int64) & _M32                 # the uint32 values
+    f = ((u >> 9) | _F32_ONE).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def _open_interval(u01: torch.Tensor) -> torch.Tensor:
+    """jax.random's uniform(lo, 1) remap: affine then clamp at lo. The
+    product by 2 is exact; the add rounds once."""
+    return torch.clamp(u01 * _OPEN_SPAN + _OPEN_LO, min=_OPEN_LO)
+
+
+def normal_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """== jax.random.normal: sqrt(2) * erf_inv(uniform(nextafter(-1,0), 1))."""
+    return _SQRT2 * xla_math.erf_inv(_open_interval(uniform_from_bits(b)))
+
+
+def laplace_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """== jax.random.laplace: sign(u) * log1p(-|u|), u ~ U(-1+eps, 1)."""
+    u = _open_interval(uniform_from_bits(b))
+    return torch.sign(u) * xla_math.log1p(-torch.abs(u))
+
+
+def rademacher_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """u = +1 where the low bit is set, else -1."""
+    one = torch.ones((), dtype=torch.float32, device=b.device)
+    return torch.where((b & 1) == 1, one, -one)
+
+
+def normal(k: Key, shape, device) -> torch.Tensor:
+    """== jax.random.normal(k, shape, float32)."""
+    return normal_from_bits(bits(k, shape, device))
+
+
+def sample_direction(k: Key, shape, dist: str, device) -> torch.Tensor:
+    """Random direction u for the two-point estimator (f32).
+
+    dist='gaussian'  : u ~ N(0, I)
+    dist='rademacher': u_i = +-1 from the low bit of the bit stream
+    (the reference's 'uniform' sphere law comes with the scan trainer)
+    """
+    if dist == "gaussian":
+        return normal(k, shape, device)
+    if dist == "rademacher":
+        return rademacher_from_bits(bits(k, shape, device))
+    raise ValueError(f"unknown direction distribution: {dist}")

@@ -1,0 +1,31 @@
+"""Parameter trees: (nested) dicts of tensors, flattened in jax's order.
+
+``jax.tree.flatten`` of a dict visits its keys SORTED, so the per-leaf
+key split of the seed-replay paths hands ``split(key, 4)`` to the FCN
+leaves in the order b1, b2, w1, w2. These helpers keep that order.
+"""
+from __future__ import annotations
+
+
+def leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree]
+
+
+def unflatten(tree, new_leaves) -> object:
+    """A tree shaped like ``tree`` holding ``new_leaves`` in flatten order."""
+    it = iter(new_leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(tree)
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
