@@ -6,30 +6,45 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-1. Device and build: the card's name and power limit, TF32 off, and both
-   CUDA kernels built from src/repro_torch/kernels/csrc/ (one nvcc per
-   source, in parallel) into build/kernels/.
-2. Kernels: each kernel against its plain torch version on the card,
-   bitwise, at the main path's shapes and at 2^24 elements, with CUDA-event
-   times (median of 20 after warm-up) and the memory-bound floor.
+1. Device and build: the card's name and power limit, TF32 off, and the
+   three CUDA kernels built from src/repro_torch/kernels/csrc/ (one nvcc
+   per source, in parallel) into build/kernels/.
+2. Kernels: each kernel against its plain torch version on the card, at
+   the main path's shapes and larger ones, with CUDA-event times (median
+   of 20 after warm-up) and the bound (the larger of bytes over the
+   memory rate and operations over the f32 rate). defended_encode and
+   zo_update are bitwise; dual_matmul (f32 and bf16, ragged shapes too,
+   and the batch-2048 and batch-64 shapes the driven paths give it) within
+   a stated relative tolerance, plus exact checks: its perturbed product is
+   bitwise its plain product at the weights that the zo_update kernel, and
+   the unfused uniform and gaussian perturbations, form.
 3. Main path: the defended AsyREVEL party round (Algorithm 1,
    ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
    x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
    fused int8 + gaussian DP + rademacher, 10 rounds of 8 party updates.
-   Launch counters are zeroed just before it and read just after; losses
-   must be finite, wire bytes exact, and the unfused run bitwise equal.
-   Then the same port on the card against the port on the CPU on a small
-   problem, and an undefended D7 training run (scale 0.01, 1200 updates)
-   whose loss must fall.
-4. The ``{"kernels": [...]}`` line, the card line, and last
+   Launch counters are zeroed just before it and read just after: one
+   dual_matmul per party round, fused or not; losses must be finite, wire
+   bytes exact, and the unfused run bitwise equal. Then the same port on
+   the card against the port on the CPU on a small problem, and an
+   undefended D7 training run (scale 0.01, 1200 updates) whose loss must
+   fall.
+4. Async: the paper's Section 5.1 experiment (examples/federated_fcn_mnist.py)
+   on the threaded executors: D7 at scale 0.01, q = 8, batch 64, uniform
+   directions, 1 ms simulated compute per party round, party 3 a 1.4x
+   straggler. ``run_async`` (1200 updates) and ``run_sync`` (150 rounds),
+   each with the counters zeroed just before it and read just after:
+   exactly 1200 updates and 1200 dual_matmul launches each, falling loss,
+   exact wire bytes; both wall-clock times and their ratio.
+5. The ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
-traces 2 rounds (16 party updates) of the defended D7 round with
-``torch.profiler``, printing the device-busy share, the kernels by device
-time, and what the eager threefry ``bits`` calls cost in that trace: each
-call is a ``record_function`` span, counted, with its host time and the
-device launches made inside it.
+traces 2 serial rounds (16 party updates) of each cell, the defended D7
+round and the async experiment's configuration, with ``torch.profiler``,
+printing the device-busy share, the kernels by device time, and what the
+eager threefry costs in that trace: each ``prng.bits`` and
+``prng.sample_direction`` call is a ``record_function`` span, counted,
+with its host time and the device launches made inside it.
 
 It imports nothing of jax or of the reference package ``repro``.
 """
@@ -185,6 +200,106 @@ def kernel_phase(dev):
     return timed, worst
 
 
+# f32 at D7 (the main path), the reference bench's shape, a large square and
+# a ragged one; bf16 at two
+# the main phase's shape (batch 2048), the async and training phases'
+# (batch 64), the reference bench's, a large square one and a ragged one
+DUAL_CASES = [((2048, 98, 128), "f32"), ((64, 98, 128), "f32"),
+              ((256, 1024, 512), "f32"),
+              ((4096, 4096, 4096), "f32"), ((1000, 98, 130), "f32"),
+              ((2048, 98, 128), "bf16"), ((256, 1024, 512), "bf16")]
+# max |kernel - plain| / max |plain|. f32: the same f32 products summed in
+# another order than cuBLAS's, a few ulps of the largest output; bf16: the
+# outputs are rounded to 8 mantissa bits, so the two may sit one bf16
+# rounding apart (the reference's bf16 tolerance).
+DUAL_TOL = {"f32": 1e-5, "bf16": 2e-2}
+
+
+def dual_matmul_phase(dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dual_matmul, ops, zo_update
+    from repro_torch.utils import prng
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    mu = 1e-3
+    worst, timed = 0.0, None
+    for (M, K, N), dt in DUAL_CASES:
+        x = torch.randn(M, K, device=dev, generator=gen).to(dtypes[dt])
+        w = torch.randn(K, N, device=dev, generator=gen).to(dtypes[dt])
+        u = torch.randn(K, N, device=dev, generator=gen)
+        got = ops.dual_matmul(x, w, u, mu)
+        want = dual_matmul.dual_matmul_plain(x, w, u, mu)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        rel = err / max(float(want[0].float().abs().max()),
+                        float(want[1].float().abs().max()))
+        if not rel <= DUAL_TOL[dt]:
+            raise AssertionError(f"dual_matmul != plain at {(M, K, N)} {dt}: "
+                                 f"relative error {rel} > {DUAL_TOL[dt]}")
+        worst = max(worst, err)
+        kern = time_ms(lambda: ops.dual_matmul(x, w, u, mu))
+        plain = time_ms(lambda: dual_matmul.dual_matmul_plain(x, w, u, mu))
+        # the yardstick: torch.matmul(x, w) and torch.matmul(x, w + mu*u),
+        # the latter in f32 (w + mu*u is f32; .float() of f32 is x itself)
+        lib = time_ms(lambda: (torch.matmul(x, w),
+                               torch.matmul(x.float(), w.float() + mu * u)))
+        esize = x.element_size()
+        nbytes = (M * K + K * N) * esize + K * N * 4 + 2 * M * N * esize
+        # both products are f32 arithmetic (w + mu*u is f32 whatever the
+        # input type): a multiply and an add per term, two products
+        n_ops = 4 * M * K * N
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S
+        row = {"kernel": "dual_matmul", "shape": [M, K, N], "dtype": dt,
+               "max_abs_err": err, "rel_err": rel, "tol": DUAL_TOL[dt],
+               "kernel_ms": kern, "plain_ms": plain, "library_ms": lib,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "kernel_tflops": n_ops / (kern * 1e-3) / 1e12}
+        log(json.dumps(row))
+        if (M, K, N) == (2048, 98, 128) and dt == "f32":
+            timed = row
+            # exact: the perturbed product is the plain product at the
+            # weights the zo_update kernel perturbs
+            b = prng.bits((5, 6), w.shape, dev)
+            w_p = zo_update.zo_update(w, b, -float(np.float32(mu)))
+            _, y1 = ops.dual_matmul(x, w, prng.rademacher_from_bits(b), mu)
+            y0_p, _ = ops.dual_matmul(x, w_p, torch.zeros_like(w), mu)
+            torch.cuda.synchronize()
+            if not bitwise_equal(y1, y0_p):
+                raise AssertionError("dual_matmul y1(w, u) != y0(w + mu*u)")
+            log("[dual_matmul] y1 at (w, u) bitwise y0 at the zo_update-"
+                "perturbed weights")
+        if (M, K, N) == (64, 98, 128) and dt == "f32":
+            # the unfused exchange's perturbation (the async phase's
+            # uniform directions, and gaussian): the kernel's own w + mu*u
+            # is bitwise the w_p the party's regularizer and update see
+            for direction in ("uniform", "gaussian"):
+                unfused_pair_is_exact(x, w, direction, mu)
+    return timed, worst
+
+
+def unfused_pair_is_exact(x, w, direction, mu):
+    import torch
+    from repro_torch.configs import VFLConfig
+    from repro_torch.core.exchange import ZOExchange
+    from repro_torch.kernels import ops
+    from repro_torch.utils import prng
+
+    ex = ZOExchange.from_config(VFLConfig(num_parties=8, direction=direction,
+                                          mu=mu, fused=False))
+    w_p, u = ex.perturb({"w1": w}, prng.key(7))
+    _, y1 = ops.dual_matmul(x, w, u["w1"], mu)
+    y0_p, _ = ops.dual_matmul(x, w_p["w1"], torch.zeros_like(w), mu)
+    torch.cuda.synchronize()
+    if not bitwise_equal(y1, y0_p):
+        raise AssertionError(f"dual_matmul y1(w, u) != y0(w_p) for the "
+                             f"unfused {direction} perturbation")
+    log(f"[dual_matmul] y1 at (w, u) bitwise y0 at the unfused {direction} "
+        "perturbation's w_p")
+
+
 # --------------------------------------------------------- main-path phase --
 
 def d7_config(fused: bool, dp: bool):
@@ -204,7 +319,6 @@ def main_path_phase(dev):
     from repro_torch.core.vfl import PaperFCNModel
     from repro_torch.data.synthetic import make_paper_dataset
     from repro_torch.data.vertical import pad_party_views, vertical_partition
-    from repro_torch.kernels import fused_round, zo_update
 
     q, batch, rounds = 8, 2048, 10
     t = time.perf_counter()
@@ -217,23 +331,24 @@ def main_path_phase(dev):
 
     def run(fused):
         tr = HostAsyncTrainer(model, d7_config(fused, dp=True), Xp, y,
-                              batch_size=batch, seed=0)
+                              batch_size=batch, seed=0, compute_cost_s=0.0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = tr.run_serial(rounds)
         torch.cuda.synchronize()
         return tr, res, (time.perf_counter() - t0) * 1e3 / (rounds * q)
 
-    fused_round.defended_encode.launches = 0
-    zo_update.zo_update.launches = 0
+    zero_launches()
     tr_f, res_f, ms_f = run(fused=True)
-    launches = {"defended_encode": fused_round.defended_encode.launches,
-                "zo_update": zo_update.zo_update.launches}
+    launches = read_launches()
     log(f"[main] fused: {len(res_f.history)} updates, {ms_f:.2f} ms per "
         f"party round, launches {launches}")
     for name, k in launches.items():
         if k == 0:
             raise AssertionError(f"the main path never launched {name}")
+    if launches["dual_matmul"] != rounds * q:
+        raise AssertionError(f"{launches['dual_matmul']} dual_matmul "
+                             f"launches in {rounds * q} party rounds")
 
     losses = [h for _, h in res_f.history]
     if len(losses) != rounds * q or not all(math.isfinite(h) for h in losses):
@@ -249,11 +364,13 @@ def main_path_phase(dev):
     log(f"[main] loss {losses[0]:.4f} -> {losses[-1]:.4f}; bytes up "
         f"{res_f.bytes_up} down {res_f.bytes_down} (exact, = analytic)")
 
-    before = dict(launches)
+    zero_launches()
     tr_u, res_u, ms_u = run(fused=False)
-    if (fused_round.defended_encode.launches, zo_update.zo_update.launches) \
-            != (before["defended_encode"], before["zo_update"]):
-        raise AssertionError("the unfused run launched a kernel")
+    unfused = read_launches()
+    if unfused != {"defended_encode": 0, "zo_update": 0,
+                   "dual_matmul": rounds * q}:
+        raise AssertionError(f"unfused run launches {unfused}: want only "
+                             "one dual_matmul per party round")
     if [h for _, h in res_u.history] != losses:
         raise AssertionError("fused losses != unfused losses")
     for m in range(q):
@@ -277,9 +394,10 @@ def main_path_phase(dev):
                     lr_party=2e-2, lr_server=1e-2, codec="int8",
                     dp=DPConfig(noise_multiplier=1.3, clip=1.0), fused=True)
     h_dev = [h for _, h in HostAsyncTrainer(
-        small, cfg, Xs, ys, batch_size=16, seed=0).run_serial(4).history]
-    h_cpu = [h for _, h in HostAsyncTrainer(
         small, cfg, Xs, ys, batch_size=16, seed=0,
+        compute_cost_s=0.0).run_serial(4).history]
+    h_cpu = [h for _, h in HostAsyncTrainer(
+        small, cfg, Xs, ys, batch_size=16, seed=0, compute_cost_s=0.0,
         device="cpu").run_serial(4).history]
     gap = max(abs(a - b) for a, b in zip(h_dev, h_cpu))
     # f32 matmul and reduction orders differ between the card and the CPU,
@@ -297,7 +415,8 @@ def main_path_phase(dev):
     vfl = VFLConfig(
         num_parties=q, direction="rademacher", mu=1e-3, lr_party=2e-2,
         lr_server=2e-2 / q, codec="int8", fused=True)
-    tr = HostAsyncTrainer(model, vfl, Xu, yu, batch_size=64, seed=0)
+    tr = HostAsyncTrainer(model, vfl, Xu, yu, batch_size=64, seed=0,
+                          compute_cost_s=0.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = tr.run_serial(150)
@@ -317,6 +436,84 @@ def main_path_phase(dev):
                       "train_loss_last50": last}
 
 
+def _counters():
+    from repro_torch.kernels import fused_round, ops, zo_update
+    return {"defended_encode": fused_round.defended_encode,
+            "zo_update": zo_update.zo_update,
+            "dual_matmul": ops.dual_matmul}
+
+
+def zero_launches():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+# ------------------------------------------------------------- async phase --
+
+def async_phase(dev):
+    """examples/federated_fcn_mnist.py on the card, through both threaded
+    executors."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PaperFCNConfig, VFLConfig
+    from repro_torch.core import comms
+    from repro_torch.core.async_host import HostAsyncTrainer
+    from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.data.synthetic import make_paper_dataset
+    from repro_torch.data.vertical import pad_party_views, vertical_partition
+
+    q, batch, updates = 8, 64, 1200
+    (X, y), spec = make_paper_dataset("D7_MNIST", scale=0.01)
+    Xp, _ = pad_party_views(vertical_partition(X, q)[0])
+    model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
+                                         num_classes=spec.classes,
+                                         num_parties=q))
+    vfl = VFLConfig(num_parties=q, direction="uniform", mu=1e-3,
+                    lr_party=2e-2, lr_server=2e-2 / q)
+    stats = {}
+    for name in ("async", "sync"):
+        tr = HostAsyncTrainer(model, vfl, Xp, y, batch_size=batch,
+                              compute_cost_s=1e-3, straggler={3: 1.4})
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = (tr.run_async(total_updates=updates) if name == "async"
+               else tr.run_sync(rounds=updates // q))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        losses = [h for _, h in res.history]
+        first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+        log(f"[async] run_{name}: {res.updates} updates in {wall:.3f} s "
+            f"({res.updates / wall:.1f}/s), loss {first:.3f} -> {last:.3f}, "
+            f"bytes up {res.bytes_up} down {res.bytes_down}, launches "
+            f"{launches}")
+        if res.updates != updates or len(losses) != updates:
+            raise AssertionError(f"run_{name}: {res.updates} updates")
+        if not all(math.isfinite(h) for h in losses) or not last < first:
+            raise AssertionError(f"run_{name}: loss did not fall")
+        if (res.bytes_up, res.bytes_down) != (updates * 2 * batch * 4,
+                                              updates * 8):
+            raise AssertionError(f"run_{name}: bytes {res.bytes_up}, "
+                                 f"{res.bytes_down}")
+        comms.validate_channel(tr.channel, updates, batch)
+        if launches != {"defended_encode": 0, "zo_update": 0,
+                        "dual_matmul": updates}:
+            raise AssertionError(f"run_{name}: launches {launches}")
+        stats[name] = {"wall_s": wall, "updates_per_s": res.updates / wall,
+                       "loss_first50": first, "loss_last50": last,
+                       "launches": launches}
+    stats["async_over_sync_wall"] = (stats["async"]["wall_s"]
+                                     / stats["sync"]["wall_s"])
+    log(f"[async] wall-clock async/sync = "
+        f"{stats['async_over_sync_wall']:.4f}")
+    return stats
+
+
 def d7_data(q):
     from repro_torch.data.synthetic import make_paper_dataset
     from repro_torch.data.vertical import pad_party_views, vertical_partition
@@ -325,32 +522,54 @@ def d7_data(q):
     return Xp, y, spec, pad
 
 
-def profile_phase(dev):
+PROFILE_SPANS = ("prng.bits", "prng.sample_direction")
+
+
+def profile_phase(dev, cell):
+    """Trace 2 serial rounds (16 party updates) of one cell after a
+    warm-up: the defended D7 main path ("d7") or the async experiment's
+    configuration ("async", on the serial schedule, without the simulated
+    compute). Each ``prng.bits`` and ``prng.sample_direction`` call is a
+    ``record_function`` span; a direction's span holds its bits span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.configs import PaperFCNConfig
+    from repro_torch.configs import PaperFCNConfig, VFLConfig
     from repro_torch.core.async_host import HostAsyncTrainer
     from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.data.synthetic import make_paper_dataset
+    from repro_torch.data.vertical import pad_party_views, vertical_partition
     from repro_torch.utils import prng
 
-    q, batch = 8, 2048
-    Xp, y, spec, _ = d7_data(q)
+    q = 8
+    if cell == "d7":
+        batch, vfl = 2048, d7_config(True, dp=True)
+        Xp, y, spec, _ = d7_data(q)
+    else:
+        batch = 64
+        vfl = VFLConfig(num_parties=q, direction="uniform", mu=1e-3,
+                        lr_party=2e-2, lr_server=2e-2 / q)
+        (X, y), spec = make_paper_dataset("D7_MNIST", scale=0.01)
+        Xp, _ = pad_party_views(vertical_partition(X, q)[0])
     model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
                                          num_classes=spec.classes,
                                          num_parties=q))
-    HostAsyncTrainer(model, d7_config(True, dp=True), Xp, y,
-                     batch_size=batch, seed=1).run_serial(1)
-    tr = HostAsyncTrainer(model, d7_config(True, dp=True), Xp, y,
-                          batch_size=batch, seed=0)
+    HostAsyncTrainer(model, vfl, Xp, y, batch_size=batch, seed=1,
+                     compute_cost_s=0.0).run_serial(1)
+    tr = HostAsyncTrainer(model, vfl, Xp, y, batch_size=batch, seed=0,
+                          compute_cost_s=0.0)
 
-    plain_bits = prng.bits
+    plain = {name: getattr(prng, name.split(".")[1]) for name in PROFILE_SPANS}
 
-    def spanned_bits(*args):
-        with record_function("prng.bits"):
-            return plain_bits(*args)
+    def spanned(name):
+        def fn(*args):
+            with record_function(name):
+                return plain[name](*args)
+        return fn
 
-    prng.bits = spanned_bits        # every caller looks it up on the module
+    # every caller looks these up on the module
+    for name in PROFILE_SPANS:
+        setattr(prng, name.split(".")[1], spanned(name))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -358,12 +577,13 @@ def profile_phase(dev):
         tr.run_serial(2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prng.bits = plain_bits
+    for name in PROFILE_SPANS:
+        setattr(prng, name.split(".")[1], plain[name])
     # the profiler mirrors each record_function span onto the device
     # timeline as an annotation; those are neither launches nor busy time
     dev_events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
-                  and e.key != "prng.bits"]
+                  and e.key not in PROFILE_SPANS]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     launches = sum(e.count for e in dev_events)
     top = sorted(dev_events, key=lambda e: e.self_device_time_total,
@@ -377,26 +597,27 @@ def profile_phase(dev):
             n, us = n + cn, us + cus
         return n, us
 
-    spans = [e for e in prof.events() if e.name == "prng.bits"
-             and e.device_type == DeviceType.CPU]
-    under = [kernels_under(e) for e in spans]
-    bits_launches = sum(n for n, _ in under)
-    bits_host_ms = sum(e.cpu_time_total for e in spans) / 1e3
-    log(json.dumps({"profile": {
-        "party_rounds": 2 * q, "wall_ms": wall_ms,
-        "ms_per_party_round": wall_ms / (2 * q),
-        "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-        "device_launches": launches,
-        "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3,
-                           e.count] for e in top],
-        "bits_calls_per_party_round": len(spans) / (2 * q),
-        "bits_host_ms": bits_host_ms,
-        "bits_host_share": bits_host_ms / wall_ms,
-        "bits_device_launches": bits_launches,
-        "bits_launch_share": bits_launches / launches,
-        "bits_device_ms": sum(us for _, us in under) / 1e3,
-        "bits_call_ms_12544": time_ms(
-            lambda: plain_bits((1, 2), (12544,), dev))}}))
+    rounds = 2 * q
+    out = {"cell": cell, "party_rounds": rounds, "wall_ms": wall_ms,
+           "ms_per_party_round": wall_ms / rounds,
+           "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+           "device_launches": launches,
+           "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3,
+                              e.count] for e in top]}
+    for name in PROFILE_SPANS:
+        spans = [e for e in prof.events() if e.name == name
+                 and e.device_type == DeviceType.CPU]
+        under = [kernels_under(e) for e in spans]
+        host_ms = sum(e.cpu_time_total for e in spans) / 1e3
+        n = sum(k for k, _ in under)
+        out[name] = {"calls_per_party_round": len(spans) / rounds,
+                     "host_ms": host_ms, "host_share": host_ms / wall_ms,
+                     "device_launches": n,
+                     "launch_share": n / launches if launches else 0.0,
+                     "device_ms": sum(us for _, us in under) / 1e3}
+    out["bits_call_ms_12544"] = time_ms(
+        lambda: plain["prng.bits"]((1, 2), (12544,), dev))
+    log(json.dumps({"profile": out}))
 
 
 def main() -> int:
@@ -428,24 +649,33 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
 
     if "--profile" in sys.argv[1:]:
-        profile_phase(dev)
+        profile_phase(dev, "d7")
+        profile_phase(dev, "async")
         return 0
     timed, worst = kernel_phase(dev)
+    timed["dual_matmul"], worst["dual_matmul"] = dual_matmul_phase(dev)
     launches, main_stats = main_path_phase(dev)
     log(json.dumps({"main_path": main_stats}))
+    log(json.dumps({"async": async_phase(dev)}))
 
     sources = {
         "defended_encode": ("src/repro_torch/kernels/csrc/defended_encode.cu",
                             "src/repro/kernels/fused_round.py:171"),
         "zo_update": ("src/repro_torch/kernels/csrc/zo_update.cu",
                       "src/repro/kernels/zo_update.py:69"),
+        "dual_matmul": ("src/repro_torch/kernels/csrc/dual_matmul.cu",
+                        "src/repro/kernels/dual_matmul.py:24"),
     }
+    # launches: the D7 main path's fused run, the one path that runs all
+    # three; library_ms: no single torch call takes the bit streams of the
+    # first two, and two torch.matmul calls compute the third
     kernels = [{"name": name, "route": "cuda", "source": src_path,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": worst[name], "ms": timed[name]["kernel_ms"],
                 "plain_ms": timed[name]["plain_ms"],
                 "bound_ms": timed[name]["bound_ms"],
-                "bound_by": timed[name]["bound_by"], "library_ms": None}
+                "bound_by": timed[name]["bound_by"],
+                "library_ms": timed[name].get("library_ms")}
                for name, (src_path, replaces) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,6 +1,7 @@
-"""Config dataclasses of the port: the paper's framework knobs and the
-DP defense, copied from the reference's configs/base.py with the same
-fields, defaults, validation and ``enabled``/``resolved`` semantics.
+"""Config dataclasses of the port: the paper's framework knobs, the DP
+defense and the wire's network model, copied from the reference's
+configs/base.py with the same fields, defaults, validation and
+``enabled``/``resolved`` semantics.
 The RDP accountant that calibrates ``noise_multiplier`` from a target
 epsilon is not ported yet, so a defended run sets ``noise_multiplier``
 explicitly.
@@ -132,3 +133,32 @@ class VFLConfig:
     fused: bool = False           # route releases through the fused
     #                               kernels/fused_round fast path (bitwise
     #                               equal to the unfused seam; --fused)
+
+
+@dataclass(frozen=True)
+class NetworkConfig:
+    """Per-link channel model for the wire subsystem (core/wire.py).
+
+    A message of ``n`` bytes on a link costs
+    ``scale * (latency_s + n / bandwidth_Bps + U(0, jitter_s))`` seconds,
+    where ``scale`` is the per-party link multiplier (``party_scale[m]``
+    for party m's link, 1.0 past the tuple's end). The defaults are the
+    paper's Table-3 channel constants, so the 'lan' profile reproduces the
+    paper's time ratios from measured message bytes.
+    """
+    name: str = "lan"
+    latency_s: float = 5e-5       # per-message (Table 3's channel model)
+    bandwidth_Bps: float = 1e8
+    jitter_s: float = 0.0         # uniform [0, jitter_s) extra per message
+    party_scale: Optional[Tuple[float, ...]] = None
+
+
+NETWORK_PROFILES = {
+    "lan": NetworkConfig("lan"),
+    # trans-continental WAN: 20ms latency, 10 Mbit/s, 2ms jitter
+    "wan": NetworkConfig("wan", latency_s=2e-2, bandwidth_Bps=1.25e6,
+                         jitter_s=2e-3),
+    # LAN where party 0's link is 6x slower (Fig 3's straggler, as a
+    # network property instead of a compute multiplier)
+    "straggler": NetworkConfig("straggler", party_scale=(6.0,)),
+}

@@ -1,28 +1,40 @@
-"""Host executor — the paper's party/server round on one process.
+"""Host executor: the paper's party/server round in threads, as the
+paper's MPI experiment runs it.
 
-``run_serial`` is the deterministic reference schedule: round-robin over
-the parties on one thread. Each party round samples a minibatch of the
-party's PRIVATE feature slice, computes (c, c_hat), sends both up, gets
-(h, h_bar) back, and updates its local block. The server holds w0 and
-the table of the latest c of every party on every sample (Algorithm 1),
-decodes the up-link, answers with the two batch-mean losses, and takes
-its own Eq. 17 step.
+``run_async`` (AsyREVEL) runs one thread per party: each loops on its
+own, sampling a minibatch of its PRIVATE feature slice, computing
+(c, c_hat), sending both up, getting (h, h_bar) back and updating its
+block, until the global update budget is spent. A party's local compute
+is a simulated sleep (``compute_cost_s`` times its ``straggler``
+multiplier), so q parties really overlap and a straggler shows Fig 3's
+async-vs-sync gap. ``run_sync`` (SynREVEL) runs the same math with a
+barrier per round: every party waits for the slowest. ``run_serial`` is
+the deterministic reference schedule (round-robin on one thread) that
+transcripts, replays and the parity pins use.
 
-The message round (perturbation, up-link codec, coefficient, update
-apply) is core/exchange.py's ZOExchange, including the optional DP
-defense and the ``fused`` path that runs the hand-written CUDA kernels
-(kernels/fused_round.py). Every boundary crossing is a typed
-core/wire.py Message through the trainer's Channel, and the byte counters
-are measured twice independently: by the exchange's CommsMeter at the
-codec and by the channel per message kind.
+The server holds w0 and the table of the latest c of every party on
+every sample (Algorithm 1) behind one lock, decodes the up-link, answers
+with the two batch-mean losses, and takes its own Eq. 17 step. The
+message round (perturbation, up-link codec, coefficient, update apply)
+is core/exchange.py's ZOExchange, including the optional DP defense and
+the ``fused`` path that runs the defended_encode and zo_update kernels.
+The FCN's two tower evaluations run on the dual_matmul kernel on the
+card, fused or not (core/vfl.py). Every boundary crossing is a typed
+core/wire.py Message through the trainer's Channel, and the byte
+counters are measured twice independently: by the exchange's CommsMeter
+at the codec and by the channel per message kind.
 
-The party math is three module-level helpers (prepare -> messages ->
-apply), as in the reference, so a later transport can run them with a
-socket in between. The threaded ``run_async``/``run_sync`` executors and
-the tracing spans are not ported yet.
+Every torch call of the party and server math runs under one device lock
+(``_DEVICE_LOCK``), as the reference serializes its jax work: the
+parallel part of the simulation is the sleep-modelled party compute, and
+the kernel wrappers' launch counters and lazy library loads are never
+raced. The party math is three module-level helpers (prepare ->
+messages -> apply), as in the reference, so a later transport can run
+them with a socket in between. Tracing spans are not ported yet.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -34,8 +46,14 @@ from repro_torch.core.exchange import CommsMeter, ZOExchange, to_host
 from repro_torch.core.vfl import VFLModel
 from repro_torch.core.wire import (SERVER, Channel, InMemoryChannel, Message,
                                    party, party_index)
+from repro_torch.kernels import build
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+
+# Every torch call of the party and server math holds this lock (the
+# reference's _JAX_LOCK): one thread issues device work at a time. Where
+# both are taken, the server lock comes first.
+_DEVICE_LOCK = threading.Lock()
 
 
 @dataclass
@@ -53,6 +71,13 @@ class HostRunResult:
     def bytes_down(self) -> int:
         return self.comms.down_bytes
 
+    def time_to_loss(self, target: float):
+        """Run-relative seconds until the first loss at or below target."""
+        for t, lo in self.history:
+            if lo <= target:
+                return t
+        return None
+
 
 def _serve(model, vfl, ex, w0, cs, cs_hat, y, key):
     """Algorithm-1 server side; Eq. 17 routes through the exchange."""
@@ -66,10 +91,10 @@ def _serve(model, vfl, ex, w0, cs, cs_hat, y, key):
 
 
 def _party_local(model, ex, w_m, x_m, key, m):
-    """Perturb + both local evals + both regularizers."""
+    """Perturb + both local evals (one party_forward_pair) + both
+    regularizers."""
     w_p, u = ex.perturb(w_m, key)
-    c = model.party_forward(w_m, x_m, m)
-    c_hat = model.party_forward(w_p, x_m, m)
+    c, c_hat = model.party_forward_pair(w_m, w_p, u, x_m, m, ex.mu)
     return c, c_hat, model.regularizer(w_m), model.regularizer(w_p), u
 
 
@@ -115,13 +140,14 @@ def party_round_prepare(model, vfl: VFLConfig, ex: ZOExchange, w_m, X,
     is the padded feature matrix as a tensor on the party's device. With
     ``ex.fused`` each encode is one defended_encode kernel and the
     perturbation is the zo_update kernel."""
-    idx_t = torch.as_tensor(np.asarray(idx), device=X.device)
-    x_m = model.slice_features(X[idx_t], m)
-    c, c_hat, reg0, reg1, u = _party_local(model, ex, w_m, x_m, key, m)
-    wire_c = to_host(ex.encode_up(c, prng.fold_in(key, 1)))
-    wire_c_hat = to_host(ex.encode_up(c_hat, prng.fold_in(key, 2)))
-    return PartyRoundPrep(wire_c, [wire_c_hat], float(reg0), [float(reg1)],
-                          u)
+    with _DEVICE_LOCK:
+        idx_t = torch.as_tensor(np.asarray(idx), device=X.device)
+        x_m = model.slice_features(X[idx_t], m)
+        c, c_hat, reg0, reg1, u = _party_local(model, ex, w_m, x_m, key, m)
+        wire_c = to_host(ex.encode_up(c, prng.fold_in(key, 1)))
+        wire_c_hat = to_host(ex.encode_up(c_hat, prng.fold_in(key, 2)))
+        return PartyRoundPrep(wire_c, [wire_c_hat], float(reg0),
+                              [float(reg1)], u)
 
 
 def party_round_messages(channel: Channel, m: int, rnd: int, idx,
@@ -147,11 +173,14 @@ def party_round_apply(vfl: VFLConfig, ex: ZOExchange, w_m,
     h, h_bar = scalars
     coeff = ex.coefficient(h_bar + vfl.lam * prep.regs[0],
                            h + vfl.lam * prep.reg0)
-    return ex.apply_direction(w_m, prep.us, np.float32(coeff), vfl.lr_party)
+    with _DEVICE_LOCK:
+        return ex.apply_direction(w_m, prep.us, np.float32(coeff),
+                                  vfl.lr_party)
 
 
 class _Server:
-    """Holds w0 and the latest c table. Receives the party's typed
+    """Holds w0 and the latest c table, all behind one lock (the MPI
+    process would serialize the same way). Receives the party's typed
     up-link Messages, decodes through the shared exchange, and replies
     with a loss_down Message through the channel."""
 
@@ -164,14 +193,23 @@ class _Server:
         self.channel = channel
         self.device = device
         self.y = y
-        self.w0 = w0 if w0 is not None else model.init_server(key, device)
+        # reentrant, as the reference's: a caller may wrap handle() and its
+        # own bookkeeping in one critical section
+        self.lock = threading.RLock()
+        self.w0 = (w0 if w0 is not None         # guarded-by: self.lock
+                   else model.init_server(key, device))
         # the server's perturbation stream derives from the TRAINER seed
         # (folded per update in handle)
         self.pert_key = pert_key
         # latest function value of each party on each sample ("received
         # previously", Algorithm 1), warm-started to zeros
-        self.c_table = np.zeros((len(y), model.num_parties), np.float32)
-        self.losses = HostRunResult(comms=ex.meter)
+        self.c_table = np.zeros(                  # guarded-by: self.lock
+            (len(y), model.num_parties), np.float32)
+        self.losses = HostRunResult(              # guarded-by: self.lock
+            comms=ex.meter)
+        # update-budget claims (run_async): taken under self.lock before a
+        # party starts its round, so a run does exactly total_updates
+        self.claimed = 0                          # guarded-by: self.lock
         self.t0 = time.perf_counter()
 
     def handle(self, msg_c: Message, msg_c_hats):
@@ -181,39 +219,45 @@ class _Server:
             msg_c_hats = (msg_c_hats,)
         m = party_index(msg_c.sender)
         idx = np.asarray(msg_c.meta["idx"])
-        rnd = self.losses.updates
-        key = prng.fold_in(self.pert_key, rnd)
-        c = np.asarray(self.ex.decode_up(msg_c.payload), np.float32)
-        c_hat = np.asarray(self.ex.decode_up(msg_c_hats[0].payload),
-                           np.float32)
-        self.c_table[idx, m] = c
-        cs = torch.from_numpy(self.c_table[idx]).to(self.device)  # stale others
-        cs_hat = cs.clone()
-        cs_hat[:, m] = torch.from_numpy(c_hat).to(self.device)
-        y = self.y[torch.as_tensor(idx, device=self.device)]
-        h, h_bar, self.w0 = _serve(self.model, self.vfl, self.ex, self.w0,
-                                   cs, cs_hat, y, key)
-        h, h_bar = float(h), float(h_bar)
-        self.losses.updates += 1
-        self.losses.history.append((time.perf_counter() - self.t0, h))
-        self.ex.meter.add_round()
-        payload = self.ex.send_down(h, h_bar)      # meters the bytes
-        return self.channel.send(
-            Message.make("loss_down", SERVER, msg_c.sender, rnd, payload))
+        with self.lock:
+            rnd = self.losses.updates
+            key = prng.fold_in(self.pert_key, rnd)
+            c = np.asarray(self.ex.decode_up(msg_c.payload), np.float32)
+            c_hat = np.asarray(self.ex.decode_up(msg_c_hats[0].payload),
+                               np.float32)
+            self.c_table[idx, m] = c
+            with _DEVICE_LOCK:
+                cs = torch.from_numpy(self.c_table[idx]).to(self.device)
+                cs_hat = cs.clone()                  # stale others
+                cs_hat[:, m] = torch.from_numpy(c_hat).to(self.device)
+                y = self.y[torch.as_tensor(idx, device=self.device)]
+                h, h_bar, self.w0 = _serve(self.model, self.vfl, self.ex,
+                                           self.w0, cs, cs_hat, y, key)
+                h, h_bar = float(h), float(h_bar)
+            self.losses.updates += 1
+            self.losses.history.append((time.perf_counter() - self.t0, h))
+            self.ex.meter.add_round()
+            payload = self.ex.send_down(h, h_bar)      # meters the bytes
+            return self.channel.send(
+                Message.make("loss_down", SERVER, msg_c.sender, rnd, payload))
 
 
 class HostAsyncTrainer:
-    """The deterministic round-robin schedule (``run_serial``) of the
-    reference's host executor, on one device.
+    """AsyREVEL over threads (``run_async``), the synchronous SynREVEL
+    with a per-round barrier (``run_sync``), or the deterministic
+    round-robin reference schedule (``run_serial``), on one device.
 
     ``device=None`` is the GPU and raises without one; pass
     ``device="cpu"`` to run the plain versions on the CPU. Initial params
     come from the trainer keys unless ``party_params`` (a list of q param
     dicts) or ``server_params`` are given, e.g. from
-    ``interop.params_from_numpy``."""
+    ``interop.params_from_numpy``. ``compute_cost_s`` is the simulated
+    local compute of one party round, slept outside every lock and
+    multiplied by ``straggler[m]`` for party m."""
 
     def __init__(self, model: VFLModel, vfl: VFLConfig, X, y,
-                 batch_size: int = 32, seed: int = 0,
+                 batch_size: int = 32, compute_cost_s: float = 2e-4,
+                 straggler: dict[int, float] | None = None, seed: int = 0,
                  channel: Channel | None = None, device=None,
                  party_params=None, server_params=None):
         self.device = resolve_device(device)
@@ -222,6 +266,8 @@ class HostAsyncTrainer:
         y = np.asarray(y)
         self.n = len(y)
         self.batch_size = batch_size
+        self.compute_cost_s = compute_cost_s
+        self.straggler = straggler or {}
         self.seed = seed
         self.channel = channel if channel is not None else InMemoryChannel()
         self.exchange = ZOExchange.from_config(vfl, meter=CommsMeter())
@@ -236,28 +282,121 @@ class HostAsyncTrainer:
         self._party_round = [0] * q
         self._spent = False
 
+    def _warm_kernels(self):
+        """Build and load every kernel before the run clock starts, so no
+        build lands inside the timed run; nothing is launched. Builds are
+        cached by source hash, so a warm cache costs a few loads."""
+        if self.device.type != "cuda":
+            return
+        build.build_all()
+        with _DEVICE_LOCK:
+            for name in build.KERNELS:
+                build.load(name)
+
     def _start_run(self):
+        """Arm one run: history timestamps are run-relative (kernel builds
+        land before the clock starts), and a trainer runs once."""
         if self._spent:
             raise RuntimeError(
                 "this HostAsyncTrainer already ran; construct a fresh one "
                 "(history/meters are run-relative)")
         self._spent = True
-        self.server.t0 = time.perf_counter()
+        self._warm_kernels()
+        with self.server.lock:
+            self.server.t0 = time.perf_counter()
 
     def party_step(self, m: int, idx: np.ndarray, key):
         """One Algorithm-1 round for party m on the given batch: perturb/
-        eval locally, encode + send c_up and c_hat_up, receive loss_down,
-        form the coefficient, apply the block update."""
+        eval locally, sleep the simulated compute, encode + send c_up and
+        c_hat_up, receive loss_down, form the coefficient, apply the block
+        update. Only party m's thread touches its block and counter."""
         rnd = self._party_round[m]
         self._party_round[m] += 1
         prep = party_round_prepare(self.model, self.vfl, self.exchange,
                                    self.party_w[m], self.X, idx, key, m)
+        t = self.compute_cost_s * self.straggler.get(m, 1.0)
+        if t > 0:
+            time.sleep(t)
         msg_c, msg_hats = party_round_messages(self.channel, m, rnd, idx,
                                                prep)
         down = self.server.handle(msg_c, msg_hats)
         self.party_w[m] = party_round_apply(self.vfl, self.exchange,
                                             self.party_w[m], prep,
                                             down.scalars())
+
+    def _party_update(self, m: int, rng: np.random.Generator):
+        idx, key = draw_round(rng, self.n, self.batch_size)
+        self.party_step(m, idx, key)
+
+    def _claim_update(self, total_updates: int) -> bool:
+        """Reserve one unit of the global update budget under the server
+        lock, before the round starts, so exactly ``total_updates`` rounds
+        ever begin."""
+        with self.server.lock:
+            if self.server.claimed >= total_updates:
+                return False
+            self.server.claimed += 1
+            return True
+
+    def run_async(self, total_updates: int) -> HostRunResult:
+        """Parties run until the GLOBAL update budget is spent; fast
+        parties contribute more rounds (nobody waits for a straggler)."""
+        self._start_run()
+        q = self.model.num_parties
+        errors: list[BaseException] = []
+
+        def loop(m):
+            rng = np.random.default_rng(party_rng_seed(self.seed, m))
+            try:
+                while self._claim_update(total_updates):
+                    self._party_update(m, rng)
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        threads = [threading.Thread(target=loop, args=(m,), daemon=True)
+                   for m in range(q)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        # zvlint: disable=lock-discipline — all writers joined above
+        return self.server.losses
+
+    def run_sync(self, rounds: int) -> HostRunResult:
+        """Barrier per round: parties run concurrently but a round ends
+        only when the slowest party (the straggler) does. One persistent
+        worker per party on one ``Barrier``; a worker error aborts the
+        barrier, releasing the others, and is re-raised here."""
+        self._start_run()
+        q = self.model.num_parties
+        barrier = threading.Barrier(q)
+        errors: list[BaseException] = []
+
+        def worker(m):
+            rng = np.random.default_rng(party_rng_seed(self.seed, m))
+            for _ in range(rounds):
+                try:
+                    self._party_update(m, rng)
+                    barrier.wait()       # <- synchronization cost
+                except threading.BrokenBarrierError:
+                    return
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(e)
+                    barrier.abort()      # release the other workers
+                    return
+
+        threads = [threading.Thread(target=worker, args=(m,), daemon=True)
+                   for m in range(q)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        # zvlint: disable=lock-discipline — all writers joined above
+        return self.server.losses
 
     def run_serial(self, rounds: int) -> HostRunResult:
         """Deterministic schedule: each round visits every party in index
@@ -268,8 +407,6 @@ class HostAsyncTrainer:
                 for m in range(q)]
         for _ in range(rounds):
             for m in range(q):
-                idx, key = draw_round(rngs[m], self.n, self.batch_size)
-                self.party_step(m, idx, key)
-        # zvlint: disable=lock-discipline — single-threaded schedule; the
-        # port's server has no lock (the threaded executors are not ported)
+                self._party_update(m, rngs[m])
+        # zvlint: disable=lock-discipline — single-threaded schedule
         return self.server.losses

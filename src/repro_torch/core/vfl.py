@@ -13,14 +13,17 @@ party) ever cross the boundary.
     ReLU) with scalar output; the server is a (q x 10) FC + softmax CE.
 
 Params are dicts of tensors; ``init_*`` take the device to build them on.
-The towers' matrix products are plain ``torch.matmul`` (the reference
-leaves them to XLA, outside any kernel).
+A round's two tower evaluations go through ``party_forward_pair``: the
+FCN's pair of first-layer products is one dual_matmul kernel
+(kernels/dual_matmul.py) on the card; every other product is plain
+``torch.matmul`` (the reference leaves them to XLA, outside any kernel).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.paper_models import PaperFCNConfig, PaperLRConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import cross_entropy_loss, dense_init
 from repro_torch.utils import prng, trees
 
@@ -69,6 +72,11 @@ class VFLModel:
     def party_forward(self, w_m, x_m, m: int):
         """F_m: private features -> c_m."""
         raise NotImplementedError
+
+    def party_forward_pair(self, w_m, w_p, u, x_m, m: int, mu: float):
+        """A round's two tower evaluations (c, c_hat) = (F_m(w_m; x_m),
+        F_m(w_p; x_m)), where w_p = w_m + mu * u is the perturbed block."""
+        return self.party_forward(w_m, x_m, m), self.party_forward(w_p, x_m, m)
 
     def server_forward(self, w0, cs, y):
         """F_0: the (B, q) table of c values + labels -> scalar loss."""
@@ -157,9 +165,21 @@ class PaperFCNModel(VFLModel):
     def slice_features(self, x, m: int):
         return x[..., m * self.pad:(m + 1) * self.pad]
 
+    @staticmethod
+    def _tower_head(w, z):
+        """The tower after its first product z = x_m @ w1."""
+        h = torch.relu(z + w["b1"])
+        return (h @ w["w2"] + w["b2"])[..., 0]          # (B,)
+
     def party_forward(self, w_m, x_m, m: int):
-        h = torch.relu(x_m @ w_m["w1"] + w_m["b1"])
-        return (h @ w_m["w2"] + w_m["b2"])[..., 0]     # (B,)
+        return self._tower_head(w_m, x_m @ w_m["w1"])
+
+    def party_forward_pair(self, w_m, w_p, u, x_m, m: int, mu: float):
+        """Both first-layer products in one dual_matmul: the kernel forms
+        w1 + mu * u1 itself, bitwise ``w_p["w1"]``; the rest of each tower
+        runs on its own block's b1, w2, b2."""
+        z, z_hat = ops.dual_matmul(x_m, w_m["w1"], u["w1"], mu)
+        return self._tower_head(w_m, z), self._tower_head(w_p, z_hat)
 
     def server_forward(self, w0, cs, y):
         return cross_entropy_loss(cs @ w0["w"] + w0["b"], y)

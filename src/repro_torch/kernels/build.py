@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("defended_encode", "zo_update")
+KERNELS = ("defended_encode", "zo_update", "dual_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -107,6 +107,13 @@ def load(name: str) -> ctypes.CDLL:
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
+    "dual_matmul": {
+        # x, ldx, w, u, mu, y0, y1, M, N, K, stream
+        f"dual_matmul_{t}": (_P, ctypes.c_longlong, _P, _P, ctypes.c_float,
+                             _P, _P, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, _P)
+        for t in ("f32", "bf16")
+    },
     "zo_update": {
         # w, bits, scale, out, n, stream
         "zo_update_f32": (_P, _P, ctypes.c_float, _P, ctypes.c_longlong, _P),

@@ -22,8 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.zo_update import zo_update
+from repro_torch.kernels import build, ops
 from repro_torch.utils import prng, trees
 from repro_torch.utils.prng import (laplace_from_bits,  # noqa: F401
                                     normal_from_bits, rademacher_from_bits,
@@ -182,20 +181,18 @@ def zo_apply(w_tree, key, scale):
     """w - scale * u(key) with Rademacher u regenerated from the seed,
     never stored; one zo_update launch per leaf. Bitwise equal to
     zoo.apply_zo_update(dist='rademacher') at scale = f32(lr * coeff)."""
-    leaves, bits = _leaf_bits(w_tree, key)
-    return trees.unflatten(
-        w_tree, [zo_update(leaf, b, scale) for leaf, b in zip(leaves, bits)])
+    _, bits = _leaf_bits(w_tree, key)
+    return ops.zo_update(w_tree, trees.unflatten(w_tree, bits), scale)
 
 
 def perturb(w_tree, key, mu: float):
     """(w + mu*u, u) with Rademacher u; the fused twin of zoo.perturb.
     The kernel runs at scale = -mu: subtracting the negated product is
     IEEE-exact, so this equals w + mu*u bit for bit."""
-    leaves, bits = _leaf_bits(w_tree, key)
-    neg_mu = -float(np.float32(mu))
-    pert = [zo_update(leaf, b, neg_mu) for leaf, b in zip(leaves, bits)]
-    u = [rademacher_from_bits(b) for b in bits]
-    return trees.unflatten(w_tree, pert), trees.unflatten(w_tree, u)
+    _, bits = _leaf_bits(w_tree, key)
+    bits_tree = trees.unflatten(w_tree, bits)
+    pert = ops.zo_update(w_tree, bits_tree, -float(np.float32(mu)))
+    return pert, trees.tree_map(rademacher_from_bits, bits_tree)
 
 
 def apply_direction_fused(w, u, coeff, lr):

@@ -26,6 +26,7 @@ from __future__ import annotations
 import hashlib
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.utils import xla_math
@@ -140,11 +141,20 @@ def sample_direction(k: Key, shape, dist: str, device) -> torch.Tensor:
     """Random direction u for the two-point estimator (f32).
 
     dist='gaussian'  : u ~ N(0, I)
+    dist='uniform'   : u ~ Unif(S^{d-1}) * sqrt(d), from the gaussian draw
+                       of the same key (E||u||^2 = d, as for the gaussian)
     dist='rademacher': u_i = +-1 from the low bit of the bit stream
-    (the reference's 'uniform' sphere law comes with the scan trainer)
     """
     if dist == "gaussian":
         return normal(k, shape, device)
+    if dist == "uniform":
+        g = normal(k, shape, device)
+        # the f32 sum of squares, then a correctly rounded f32 root (the
+        # f64 root rounded once; torch's CPU f32 sqrt is not), as XLA's
+        # norm; the sum's order differs from XLA's by ulps
+        norm = torch.sum(g * g).double().sqrt().float()
+        sqrt_d = float(np.float32(math.sqrt(g.numel())))
+        return g / (norm + 1e-12) * sqrt_d
     if dist == "rademacher":
         return rademacher_from_bits(bits(k, shape, device))
     raise ValueError(f"unknown direction distribution: {dist}")

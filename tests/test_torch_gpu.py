@@ -1,5 +1,7 @@
-"""The CUDA kernels against their plain torch versions, bitwise, on the
-card. No jax here: the machine with the card has none. Without a CUDA
+"""The CUDA kernels against their plain torch versions on the card:
+defended_encode and zo_update bitwise, dual_matmul within a stated
+tolerance (its sums run in another order than cuBLAS's) and bitwise
+where only its own order is involved. No jax here: the machine with the card has none. Without a CUDA
 device every test skips (the kernels have no CPU mode); run them there
 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
 import numpy as np
@@ -7,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.configs import DPConfig
-from repro_torch.kernels import fused_round, zo_update
+from repro_torch.kernels import dual_matmul, fused_round, ops, zo_update
 from repro_torch.utils import prng
 
 pytestmark = [pytest.mark.torch, pytest.mark.gpu]
@@ -69,3 +71,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_round.defended_encode(w, b.long(), None,
                                     DPConfig(noise_multiplier=1.0, clip=1.0),
                                     "f32")
+
+
+def _dual_inputs(cuda, M, K, N, dtype, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn(M, K, device=cuda, generator=g).to(dtype)
+    w = torch.randn(K, N, device=cuda, generator=g).to(dtype)
+    u = torch.randn(K, N, device=cuda, generator=g)
+    return x, w, u
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+# f32: both sides sum the same f32 products, in another order (<= a few
+# ulps of the largest output); bf16: outputs rounded to 8 mantissa bits,
+# so one rounding apart at most (the reference's bf16 tolerance)
+DUAL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("M,K,N", [(2048, 98, 128), (64, 98, 128),
+                                   (256, 1024, 512), (1000, 98, 130),
+                                   (1, 1, 1), (65, 17, 63)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dual_matmul_kernel_vs_plain(cuda, M, K, N, dtype):
+    x, w, u = _dual_inputs(cuda, M, K, N, dtype, seed=M + K + N)
+    n0 = ops.dual_matmul.launches
+    y0, y1 = ops.dual_matmul(x, w, u, 1e-3)
+    assert ops.dual_matmul.launches == n0 + 1
+    r0, r1 = dual_matmul.dual_matmul_plain(x, w, u, 1e-3)
+    torch.cuda.synchronize()
+    assert y0.dtype == y1.dtype == dtype and y0.shape == (M, N)
+    assert _rel_err(y0, r0) <= DUAL_TOL[dtype]
+    assert _rel_err(y1, r1) <= DUAL_TOL[dtype]
+
+
+def test_dual_matmul_kernel_takes_a_column_slice_of_x(cuda):
+    X, w, u = _dual_inputs(cuda, 512, 784, 128, torch.float32, seed=1)
+    x = X[:, 196:294]                          # party 2's block, K = 98
+    got = ops.dual_matmul(x, w[:98].contiguous(),
+                                  u[:98].contiguous(), 5e-2)
+    want = ops.dual_matmul(x.contiguous(), w[:98].contiguous(),
+                                   u[:98].contiguous(), 5e-2)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+def test_dual_matmul_perturbed_product_is_exact(cuda):
+    """y1 of dual(x, w, u, mu) is bitwise y0 of dual(x, w_p, 0, mu), where
+    w_p comes from the zo_update kernel at scale -mu: the kernel forms
+    w + mu*u as zo_update does and sums both accumulators alike."""
+    x, w, _ = _dual_inputs(cuda, 2048, 98, 128, torch.float32, seed=2)
+    b = prng.bits((5, 6), w.shape, cuda)
+    mu = 1e-3
+    w_p = zo_update.zo_update(w, b, -float(np.float32(mu)))
+    _, y1 = ops.dual_matmul(x, w, prng.rademacher_from_bits(b), mu)
+    y0_p, _ = ops.dual_matmul(x, w_p, torch.zeros_like(w), mu)
+    assert _same_bits(y1, y0_p)
+
+
+@pytest.mark.parametrize("direction", ["uniform", "gaussian"])
+def test_fcn_pair_is_exact_at_the_unfused_perturbation(cuda, direction):
+    """The unfused exchange forms w_p = w + mu*d in torch; the FCN's pair
+    has the kernel form w1 + mu*u1 itself. Both must be the same f32
+    weights, so c_hat is the tower at the party's own w_p."""
+    from repro_torch.configs import PaperFCNConfig, VFLConfig
+    from repro_torch.core.exchange import ZOExchange
+    from repro_torch.core.vfl import PaperFCNModel
+
+    model = PaperFCNModel(PaperFCNConfig(num_features=784, num_parties=8))
+    w_m = model.init_party(prng.key(3), 2, cuda)
+    ex = ZOExchange.from_config(VFLConfig(num_parties=8, direction=direction,
+                                          mu=1e-3, fused=False))
+    w_p, u = ex.perturb(w_m, prng.key(4))
+    g = torch.Generator(cuda).manual_seed(5)
+    x_m = model.slice_features(torch.rand(64, 784, device=cuda, generator=g),
+                               2)
+    _, y1 = ops.dual_matmul(x_m, w_m["w1"], u["w1"], ex.mu)
+    y0_p, _ = ops.dual_matmul(x_m, w_p["w1"], torch.zeros_like(u["w1"]),
+                              ex.mu)
+    assert _same_bits(y1, y0_p)
+    _, c_hat = model.party_forward_pair(w_m, w_p, u, x_m, 2, ex.mu)
+    assert _same_bits(c_hat, model._tower_head(w_p, y0_p))
+
+
+def test_dual_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, w, u = _dual_inputs(cuda, 8, 4, 8, torch.float32, seed=3)
+    with pytest.raises(TypeError):
+        ops.dual_matmul(x.double(), w.double(), u, 1.0)
+    with pytest.raises(TypeError):
+        ops.dual_matmul(x, w, u.bfloat16(), 1.0)
+    with pytest.raises(ValueError):
+        ops.dual_matmul(x, w[:3], u[:3], 1.0)
+    with pytest.raises(ValueError):
+        ops.dual_matmul(x, w.t().contiguous().t(), u, 1.0)
+    with pytest.raises(ValueError):
+        ops.dual_matmul(x.cpu(), w, u, 1.0)
