@@ -2,12 +2,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root; needs one card
-    python3 chip_smoke.py --profile  # only: where a party round's time goes
+    python3 chip_smoke.py --profile  # only: where a round's or step's time goes
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device and build: the card's name and power limit, TF32 off, and the
-   three CUDA kernels built from src/repro_torch/kernels/csrc/ (one nvcc
+   four CUDA kernels built from src/repro_torch/kernels/csrc/ (one nvcc
    per source, in parallel) into build/kernels/.
 2. Kernels: each kernel against its plain torch version on the card, at
    the main path's shapes and larger ones, with CUDA-event times (median
@@ -17,7 +17,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and the batch-2048 and batch-64 shapes the driven paths give it) within
    a stated relative tolerance, plus exact checks: its perturbed product is
    bitwise its plain product at the weights that the zo_update kernel, and
-   the unfused uniform and gaussian perturbations, form.
+   the unfused uniform and gaussian perturbations, form. flash_attention
+   (causal at the vfl-zoo shape in bf16 and f32, yi-34b's GQA heads, a
+   ragged S, full attention) within a stated relative tolerance, and in
+   bf16 element by element within half a bf16 ulp of the plain version's
+   f32 result; its bound takes bf16 q.k at the tensor-core rate and p.v
+   at the f32 rate, and its library time is PyTorch's
+   scaled_dot_product_attention, which the port never calls.
 3. Main path: the defended AsyREVEL party round (Algorithm 1,
    ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
    x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
@@ -28,19 +34,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the card against the port on the CPU on a small problem, and an
    undefended D7 training run (scale 0.01, 1200 updates) whose loss must
    fall.
-4. Async: the paper's Section 5.1 experiment (examples/federated_fcn_mnist.py)
+4. vfl-zoo: ``python -m repro_torch.launch.train --arch qwen1.5-0.5b --mode
+   vfl-zoo --parties 4 --batch-size 4 --seq-len 2048 --steps 5 --fused
+   --codec int8`` through ``launch.train.main``, at full width and all 24
+   layers (random weights from the seed). Counters zeroed just before it
+   and read just after: exactly 72 flash_attention and 5 defended_encode
+   launches per step and none of the other two; every h finite, the first
+   within 1.0 of ln(vocab). Seconds per step, peak memory, then the time
+   split of 2 more steps (direction draws, server forwards, party towers,
+   up-link, rest), then a reduced run on the card against the CPU (3
+   steps, h within 1e-3 in f32; in bf16 the first h within 2e-3 and the
+   rest within 5e-2).
+5. Async: the paper's Section 5.1 experiment (examples/federated_fcn_mnist.py)
    on the threaded executors: D7 at scale 0.01, q = 8, batch 64, uniform
    directions, 1 ms simulated compute per party round, party 3 a 1.4x
    straggler. ``run_async`` (1200 updates) and ``run_sync`` (150 rounds),
    each with the counters zeroed just before it and read just after:
    exactly 1200 updates and 1200 dual_matmul launches each, falling loss,
    exact wire bytes; both wall-clock times and their ratio.
-5. The ``{"kernels": [...]}`` line, the card line, and last
+6. The ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
-traces 2 serial rounds (16 party updates) of each cell, the defended D7
-round and the async experiment's configuration, with ``torch.profiler``,
+traces 2 serial rounds (16 party updates) of each D7 cell, the defended
+round and the async experiment's configuration, and one step of the
+vfl-zoo cell, with ``torch.profiler``,
 printing the device-busy share, the kernels by device time, and what the
 eager threefry costs in that trace: each ``prng.bits`` and
 ``prng.sample_direction`` call is a ``record_function`` span, counted,
@@ -280,6 +298,113 @@ def dual_matmul_phase(dev):
     return timed, worst
 
 
+# (B, S, H, KV, hd, dtype, causal): the vfl-zoo path's shape (qwen1.5-0.5b
+# at batch 4, sequence 2048) in both types, yi-34b's GQA heads, a ragged S
+# and full (non-causal) attention
+FLASH_CASES = [(4, 2048, 16, 16, 64, "bf16", True),
+               (4, 2048, 16, 16, 64, "f32", True),
+               (1, 1024, 56, 8, 128, "bf16", True),
+               (1, 1024, 56, 8, 128, "f32", True),
+               (2, 1000, 8, 4, 64, "f32", True),
+               (2, 1000, 8, 4, 64, "bf16", True),
+               (2, 1024, 8, 8, 128, "f32", False),
+               (2, 1024, 8, 2, 64, "bf16", False)]
+# f32: max |kernel - plain| / max |plain| <= 1e-5, the same f32 terms
+# summed in another order (online softmax over 64-wide tiles against one
+# softmax over the row), a few ulps of the largest output. bf16, element by
+# element: the kernel rounds its f32 result to bf16 once, so each output
+# lies within half a bf16 ulp (2^-8 of its size) of the plain version's f32
+# result before the cast, plus the f32 bound for the order of the sums:
+# |got - want32| <= 2^-8 |want32| + 1e-5 max|want32|. Also the max-
+# normalised 2e-2 against the plain version's bf16 output.
+FLASH_TOL = {"f32": 1e-5, "bf16": 2e-2}
+BF16_HALF_ULP = 2.0 ** -8
+BF16_TC_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
+
+
+def flash_errors(got, q, k, v, causal):
+    """(max |got - plain|, that over max |plain|, and for bf16 the largest
+    |got - want32| / (2^-8 |want32| + 1e-5 max |want32|), which must be at
+    most 1; None for f32)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    want = fa.flash_attention_plain(q, k, v, causal)
+    err = max_abs(got, want)
+    rel = err / float(want.float().abs().max())
+    if q.dtype == torch.float32:
+        return err, rel, None
+    want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                      causal)
+    allowed = BF16_HALF_ULP * want32.abs() \
+        + FLASH_TOL["f32"] * float(want32.abs().max())
+    return err, rel, float(((got.float() - want32).abs() / allowed).max())
+
+
+def flash_bound(B, S, H, KV, hd, esize, causal):
+    """(bytes time, operations time, bound_by) for one causal or full
+    attention: q, k, v read once and out written once; q.k and p.v over the
+    pairs the mask keeps, a multiply and an add each. q.k takes operands of
+    the input type into an f32 sum, which the bf16 tensor cores do at the
+    same accuracy; p.v takes p in f32, so it counts at the f32 rate, as does
+    all of the f32 case."""
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esize
+    pairs = S * (S + 1) // 2 if causal else S * S
+    half_ops = 2 * B * H * hd * pairs
+    qk_rate = BF16_TC_FLOPS_PER_S if esize == 2 else F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = half_ops / qk_rate + half_ops / F32_FLOPS_PER_S
+    return t_bytes, t_ops, 2 * half_ops
+
+
+def flash_phase(dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst, timed = 0.0, None
+    for B, S, H, KV, hd, dt, causal in FLASH_CASES:
+        q, k, v = (torch.randn(B, S, n, hd, device=dev, generator=gen)
+                   .to(dtypes[dt]) for n in (H, KV, KV))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        err, rel, elem = flash_errors(got, q, k, v, causal)
+        torch.cuda.synchronize()
+        where = f"{(B, S, H, KV, hd)} {dt} causal={causal}"
+        if not rel <= FLASH_TOL[dt]:
+            raise AssertionError(
+                f"flash_attention != plain at {where}: relative error "
+                f"{rel} > {FLASH_TOL[dt]}")
+        if elem is not None and not elem <= 1.0:
+            raise AssertionError(
+                f"flash_attention != plain at {where}: an element is "
+                f"{elem} x (half a bf16 ulp + 1e-5 max) from the f32 result")
+        worst = max(worst, err)
+        kern = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal))
+        # the yardstick, never called on the path: PyTorch's fused SDPA
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=KV != H))
+        t_bytes, t_ops, n_ops = flash_bound(B, S, H, KV, hd,
+                                            q.element_size(), causal)
+        row = {"kernel": "flash_attention", "shape": [B, S, H, KV, hd],
+               "dtype": dt, "causal": causal, "max_abs_err": err,
+               "rel_err": rel, "tol": FLASH_TOL[dt],
+               "bf16_elem_ratio": elem, "kernel_ms": kern,
+               "plain_ms": plain, "library_ms": lib,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bf16_tensor_core_bound_ms": max(
+                   t_bytes, n_ops / BF16_TC_FLOPS_PER_S) * 1e3,
+               "kernel_tflops": n_ops / (kern * 1e-3) / 1e12}
+        log(json.dumps(row))
+        if (B, S, H, KV, hd, dt) == (4, 2048, 16, 16, 64, "bf16"):
+            timed = row
+    return timed, worst
+
+
 def unfused_pair_is_exact(x, w, direction, mu):
     import torch
     from repro_torch.configs import VFLConfig
@@ -343,9 +468,11 @@ def main_path_phase(dev):
     launches = read_launches()
     log(f"[main] fused: {len(res_f.history)} updates, {ms_f:.2f} ms per "
         f"party round, launches {launches}")
-    for name, k in launches.items():
-        if k == 0:
+    for name in D7_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
+    if launches["flash_attention"] != 0:
+        raise AssertionError("the FCN round launched flash_attention")
     if launches["dual_matmul"] != rounds * q:
         raise AssertionError(f"{launches['dual_matmul']} dual_matmul "
                              f"launches in {rounds * q} party rounds")
@@ -368,7 +495,7 @@ def main_path_phase(dev):
     tr_u, res_u, ms_u = run(fused=False)
     unfused = read_launches()
     if unfused != {"defended_encode": 0, "zo_update": 0,
-                   "dual_matmul": rounds * q}:
+                   "dual_matmul": rounds * q, "flash_attention": 0}:
         raise AssertionError(f"unfused run launches {unfused}: want only "
                              "one dual_matmul per party round")
     if [h for _, h in res_u.history] != losses:
@@ -436,11 +563,17 @@ def main_path_phase(dev):
                       "train_loss_last50": last}
 
 
+# the kernels the D7 FCN round runs; flash_attention runs in the vfl-zoo
+# phase
+D7_KERNELS = ("defended_encode", "zo_update", "dual_matmul")
+
+
 def _counters():
     from repro_torch.kernels import fused_round, ops, zo_update
     return {"defended_encode": fused_round.defended_encode,
             "zo_update": zo_update.zo_update,
-            "dual_matmul": ops.dual_matmul}
+            "dual_matmul": ops.dual_matmul,
+            "flash_attention": ops.flash_attention}
 
 
 def zero_launches():
@@ -502,7 +635,7 @@ def async_phase(dev):
                                  f"{res.bytes_down}")
         comms.validate_channel(tr.channel, updates, batch)
         if launches != {"defended_encode": 0, "zo_update": 0,
-                        "dual_matmul": updates}:
+                        "dual_matmul": updates, "flash_attention": 0}:
             raise AssertionError(f"run_{name}: launches {launches}")
         stats[name] = {"wall_s": wall, "updates_per_s": res.updates / wall,
                        "loss_first50": first, "loss_last50": last,
@@ -512,6 +645,163 @@ def async_phase(dev):
     log(f"[async] wall-clock async/sync = "
         f"{stats['async_over_sync_wall']:.4f}")
     return stats
+
+
+# ------------------------------------------------------------ vfl-zoo phase --
+
+ZOO_STEPS = 5
+ZOO_ARGS = ["--arch", "qwen1.5-0.5b", "--mode", "vfl-zoo", "--parties", "4",
+            "--batch-size", "4", "--seq-len", "2048", "--fused", "--codec",
+            "int8"]
+# what one step launches: h, h_bar and h_hat are three forwards of the
+# 24-layer backbone, one flash_attention per layer each; the up-link
+# encodes q = 4 c's and one c_hat, one defended_encode each
+ZOO_FLASH_PER_STEP = 3 * 24
+ZOO_ENCODE_PER_STEP = 4 + 1
+# the parts of a step timed on their own (the rest is the party update,
+# the server update's arithmetic and the ring buffer)
+SPLIT = (("directions", "repro_torch.core.zoo", "direction_tree"),
+         ("server_forward", "repro_torch.core.vfl",
+          "TransformerVFLModel.server_forward"),
+         ("party_forward", "repro_torch.core.vfl",
+          "TransformerVFLModel.party_forward"),
+         ("up_link", "repro_torch.core.exchange", "ZOExchange.roundtrip_up"))
+
+
+def zoo_phase(dev):
+    """The vfl-zoo training mode at qwen1.5-0.5b's full width and depth,
+    through the port's launcher, then the same step's time split, then a
+    reduced run on the card against the same run on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("qwen1.5-0.5b")
+    argv = ZOO_ARGS + ["--steps", str(ZOO_STEPS), "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    res = train.main(argv)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    h = res["h"]
+    log(f"[zoo] qwen1.5-0.5b {cfg.num_params()} params, {cfg.num_layers} "
+        f"layers, d {cfg.d_model}: setup {res['setup_s']:.2f} s, s per step "
+        f"{[round(t, 4) for t in res['step_s']]}, h {h}, peak "
+        f"{peak_gb:.2f} GB, launches {launches}")
+    want = {"flash_attention": ZOO_FLASH_PER_STEP * ZOO_STEPS,
+            "defended_encode": ZOO_ENCODE_PER_STEP * ZOO_STEPS,
+            "dual_matmul": 0, "zo_update": 0}
+    if launches != want:
+        raise AssertionError(f"vfl-zoo launches {launches}, want {want}")
+    if len(h) != ZOO_STEPS or not all(math.isfinite(x) for x in h):
+        raise AssertionError(f"vfl-zoo losses {h}")
+    if not abs(h[0] - math.log(cfg.vocab_size)) < 1.0:
+        raise AssertionError(f"first h {h[0]} is not within 1.0 of ln V = "
+                             f"{math.log(cfg.vocab_size):.4f}")
+    split = zoo_split(dev)
+
+    # the card against the CPU (the CPU port is held to the jax reference
+    # by tests/test_torch_zoo.py): reduced qwen (2 layers, d 256, f32),
+    # S 128, 3 steps from the same seed. f32 orders differ by ulps of c;
+    # should one ulp flip an int8 stochastic rounding the loss moves
+    # ~1e-5; a wrong key or kernel moves it by 1e-2 or more.
+    small = ["--arch", "qwen1.5-0.5b", "--mode", "vfl-zoo", "--reduced",
+             "--parties", "4", "--batch-size", "4", "--seq-len", "128",
+             "--steps", "3", "--fused", "--codec", "int8", "--lr", "1e-2",
+             "--log-every", "100"]
+    h_dev = train.main(small)["h"]
+    h_cpu = train.main(small + ["--device", "cpu"])["h"]
+    gap = max(abs(a - b) for a, b in zip(h_dev, h_cpu))
+    if not gap < 1e-3:
+        raise AssertionError(f"vfl-zoo card vs CPU losses differ by {gap}")
+    log(f"[zoo] card vs CPU, reduced qwen1.5-0.5b, 3 steps: max h gap "
+        f"{gap:.3g}")
+    # the same in bf16, the full-size run's dtype: the first h is one
+    # forward (roundings moved by another matmul order or an expf an ulp
+    # off spread through the layers, within 2e-3); later h's follow ZO
+    # coefficients that divide such gaps by mu (within 5e-2), the
+    # tolerances tests/test_torch_bf16.py holds the CPU port to against
+    # the reference
+    h_dev, h_cpu = reduced_bf16_steps(dev), reduced_bf16_steps("cpu")
+    gaps16 = [abs(a - b) for a, b in zip(h_dev, h_cpu)]
+    if not (gaps16[0] < 2e-3 and max(gaps16) < 5e-2
+            and all(math.isfinite(x) for x in h_dev)):
+        raise AssertionError(f"bf16 vfl-zoo card vs CPU: h {h_dev} against "
+                             f"{h_cpu}")
+    log(f"[zoo] card vs CPU, reduced qwen1.5-0.5b in bf16, 3 steps: h gaps "
+        f"{gaps16}")
+    return launches, {"steps": ZOO_STEPS, "h": h, "step_s": res["step_s"],
+                      "setup_s": res["setup_s"], "peak_gb": peak_gb,
+                      "split_s": split, "card_vs_cpu_gap": gap,
+                      "card_vs_cpu_bf16_gaps": gaps16}
+
+
+def reduced_bf16_steps(device, steps=3):
+    """h of 3 fused int8 vfl-zoo steps of reduced qwen1.5-0.5b in bf16 (2
+    layers, d 256, S 128), from seed 0, on ``device``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import VFLConfig, get_config
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import make_batch_arrays
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng
+
+    device = torch.device(device)
+    cfg = get_config("qwen1.5-0.5b", reduced=True).replace(dtype="bfloat16")
+    vfl = VFLConfig(num_parties=4, mu=1e-3, lr_party=1e-2, lr_server=1e-2 / 4,
+                    fused=True, codec="int8")
+    _, init, step = step_lib.make_vfl_zoo_step(build_model(cfg), vfl)
+    state = init(prng.key(0), device)
+    data = make_batch_arrays(cfg, 64, 128, 0, device)
+    rng = np.random.default_rng(0)
+    h = []
+    for _ in range(steps):
+        idx = torch.as_tensor(rng.integers(0, 64, 4), device=device)
+        state, loss = step(state, {k: a[idx] for k, a in data.items()})
+        h.append(float(loss))
+    return h
+
+
+def zoo_split(dev):
+    """2 more steps at the same shapes, each part of SPLIT timed on the host
+    between device syncs (the syncs cost a few ms). Returns the mean
+    seconds per step of each part, of the whole step and of the rest."""
+    import importlib
+
+    import torch
+    from repro_torch.launch import train
+
+    spent, saved = {}, []
+    for name, mod, attr in SPLIT:
+        owner = importlib.import_module(mod)
+        *cls, fn_name = attr.split(".")
+        if cls:
+            owner = getattr(owner, cls[0])
+        fn = getattr(owner, fn_name)
+        saved.append((owner, fn_name, fn))
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(owner, fn_name, timed)
+    try:
+        res = train.main(ZOO_ARGS + ["--steps", "2", "--log-every", "100",
+                                     "--seed", "1"])
+    finally:
+        for owner, fn_name, fn in saved:
+            setattr(owner, fn_name, fn)
+    n = len(res["step_s"])
+    split = {name: spent.get(name, 0.0) / n for name, _, _ in SPLIT}
+    split["step"] = sum(res["step_s"]) / n
+    split["rest"] = split["step"] - sum(split[name] for name, _, _ in SPLIT)
+    log(f"[zoo] time split, s per step (mean of {n}, under syncs): "
+        f"{json.dumps(split)}")
+    return split
 
 
 def d7_data(q):
@@ -525,21 +815,15 @@ def d7_data(q):
 PROFILE_SPANS = ("prng.bits", "prng.sample_direction")
 
 
-def profile_phase(dev, cell):
-    """Trace 2 serial rounds (16 party updates) of one cell after a
-    warm-up: the defended D7 main path ("d7") or the async experiment's
-    configuration ("async", on the serial schedule, without the simulated
-    compute). Each ``prng.bits`` and ``prng.sample_direction`` call is a
-    ``record_function`` span; a direction's span holds its bits span."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+def _fcn_workload(cell):
+    """2 serial rounds (16 party updates) of a D7 FCN cell, after a warm-up:
+    the defended main path ("d7") or the async experiment's configuration
+    ("async", on the serial schedule, without the simulated compute)."""
     from repro_torch.configs import PaperFCNConfig, VFLConfig
     from repro_torch.core.async_host import HostAsyncTrainer
     from repro_torch.core.vfl import PaperFCNModel
     from repro_torch.data.synthetic import make_paper_dataset
     from repro_torch.data.vertical import pad_party_views, vertical_partition
-    from repro_torch.utils import prng
 
     q = 8
     if cell == "d7":
@@ -558,6 +842,45 @@ def profile_phase(dev, cell):
                      compute_cost_s=0.0).run_serial(1)
     tr = HostAsyncTrainer(model, vfl, Xp, y, batch_size=batch, seed=0,
                           compute_cost_s=0.0)
+    return (lambda: tr.run_serial(2)), 2 * q, "party_round"
+
+
+def _zoo_workload(dev):
+    """One vfl-zoo step of the smoke's configuration (qwen1.5-0.5b at full
+    width and depth, batch 4, S 2048, fused int8), after a warm-up step."""
+    from repro_torch.configs import VFLConfig, get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng
+
+    args = train.parse_args(ZOO_ARGS + ["--steps", "2"])
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = build_model(cfg)
+    # the launcher's VFLConfig for these flags
+    vfl = VFLConfig(num_parties=args.parties, mu=args.mu, lr_party=args.lr,
+                    lr_server=args.lr / args.parties, fused=args.fused,
+                    codec=args.codec)
+    _, init, step = steps.make_vfl_zoo_step(model, vfl)
+    state = init(prng.key(0), dev)
+    data = train.make_batch_arrays(cfg, args.batch_size, args.seq_len, 0,
+                                   dev)
+    state, h = step(state, data)
+    float(h)
+    return (lambda: float(step(state, data)[1])), 1, "step"
+
+
+def profile_phase(dev, cell):
+    """Trace one cell's workload with ``torch.profiler``: 2 serial rounds of
+    a D7 FCN cell ("d7", "async") or one vfl-zoo step ("zoo"). Each
+    ``prng.bits`` and ``prng.sample_direction`` call is a
+    ``record_function`` span; a direction's span holds its bits span."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.utils import prng
+
+    run, units, unit = (_zoo_workload(dev) if cell == "zoo"
+                        else _fcn_workload(cell))
 
     plain = {name: getattr(prng, name.split(".")[1]) for name in PROFILE_SPANS}
 
@@ -574,7 +897,7 @@ def profile_phase(dev, cell):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.run_serial(2)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     for name in PROFILE_SPANS:
@@ -597,9 +920,8 @@ def profile_phase(dev, cell):
             n, us = n + cn, us + cus
         return n, us
 
-    rounds = 2 * q
-    out = {"cell": cell, "party_rounds": rounds, "wall_ms": wall_ms,
-           "ms_per_party_round": wall_ms / rounds,
+    out = {"cell": cell, f"{unit}s": units, "wall_ms": wall_ms,
+           f"ms_per_{unit}": wall_ms / units,
            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
            "device_launches": launches,
            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3,
@@ -610,7 +932,7 @@ def profile_phase(dev, cell):
         under = [kernels_under(e) for e in spans]
         host_ms = sum(e.cpu_time_total for e in spans) / 1e3
         n = sum(k for k, _ in under)
-        out[name] = {"calls_per_party_round": len(spans) / rounds,
+        out[name] = {f"calls_per_{unit}": len(spans) / units,
                      "host_ms": host_ms, "host_share": host_ms / wall_ms,
                      "device_launches": n,
                      "launch_share": n / launches if launches else 0.0,
@@ -649,13 +971,17 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
 
     if "--profile" in sys.argv[1:]:
-        profile_phase(dev, "d7")
-        profile_phase(dev, "async")
+        for cell in ("d7", "async", "zoo"):
+            profile_phase(dev, cell)
         return 0
     timed, worst = kernel_phase(dev)
     timed["dual_matmul"], worst["dual_matmul"] = dual_matmul_phase(dev)
+    timed["flash_attention"], worst["flash_attention"] = flash_phase(dev)
     launches, main_stats = main_path_phase(dev)
     log(json.dumps({"main_path": main_stats}))
+    zoo_launches, zoo_stats = zoo_phase(dev)
+    log(json.dumps({"vfl_zoo": zoo_stats}))
+    launches["flash_attention"] = zoo_launches["flash_attention"]
     log(json.dumps({"async": async_phase(dev)}))
 
     sources = {
@@ -665,10 +991,13 @@ def main() -> int:
                       "src/repro/kernels/zo_update.py:69"),
         "dual_matmul": ("src/repro_torch/kernels/csrc/dual_matmul.cu",
                         "src/repro/kernels/dual_matmul.py:24"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:25"),
     }
-    # launches: the D7 main path's fused run, the one path that runs all
-    # three; library_ms: no single torch call takes the bit streams of the
-    # first two, and two torch.matmul calls compute the third
+    # launches: the D7 main path's fused run for the first three, the
+    # vfl-zoo run for flash_attention; library_ms: no single torch call
+    # takes the bit streams of the first two, two torch.matmul calls
+    # compute the third, scaled_dot_product_attention the fourth
     kernels = [{"name": name, "route": "cuda", "source": src_path,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": worst[name], "ms": timed[name]["kernel_ms"],

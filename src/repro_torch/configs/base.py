@@ -1,15 +1,77 @@
-"""Config dataclasses of the port: the paper's framework knobs, the DP
-defense and the wire's network model, copied from the reference's
-configs/base.py with the same fields, defaults, validation and
-``enabled``/``resolved`` semantics.
+"""Config dataclasses of the port: the architectures' ``ModelConfig``, the
+paper's framework knobs, the DP defense and the wire's network model,
+copied from the reference's configs/base.py with the same fields,
+defaults, validation and ``enabled``/``resolved`` semantics.
+``ModelConfig`` keeps the fields the dense family reads; the fields of the
+moe, ssm, hybrid, vlm and audio families, of serving and of remat are
+not ported yet.
 The RDP accountant that calibrates ``noise_multiplier`` from a target
 epsilon is not ported yet, so a defended run sets ``noise_multiplier``
 explicitly.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense (the one family ported so far)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    sliding_window: Optional[int] = None   # None = full attention
+    dtype: str = "bfloat16"
+    chunked_ce: bool = False      # vocab-chunked loss (not ported)
+    citation: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads == 0:
+            return 0
+        return self.d_model // self.num_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: <=2 layers, d_model<=256, f32 (the
+        reference's rule, field for field)."""
+        d_model = min(self.d_model, 256)
+        n_heads = 0 if self.num_heads == 0 else min(self.num_heads, 4)
+        ratio = max(1, (self.num_heads or 1) // max(1, self.num_kv_heads or 1))
+        kv = 0 if n_heads == 0 else max(1, n_heads // min(ratio, n_heads))
+        return dataclasses.replace(
+            self, num_layers=2, d_model=d_model, num_heads=n_heads,
+            num_kv_heads=kv, head_dim=64 if n_heads else 0,
+            d_ff=min(self.d_ff, 512), vocab_size=min(self.vocab_size, 512),
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else None),
+            dtype="float32")
+
+    def num_params(self) -> int:
+        """Parameter count of a dense config (embedding, head, layers)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        H, KV = self.num_heads, self.num_kv_heads
+        p = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+        per_layer = d * H * hd + 2 * d * KV * hd + H * hd * d \
+            + 3 * d * self.d_ff + 2 * d
+        if self.qkv_bias:
+            per_layer += (H + 2 * KV) * hd
+        return int(p + self.num_layers * per_layer)
 
 
 @dataclass(frozen=True)

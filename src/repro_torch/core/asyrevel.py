@@ -1,0 +1,145 @@
+"""AsyREVEL, the device-level trainer step (Algorithm 1), as the
+reference's core/asyrevel.py runs it inside its scan:
+
+  * the party params stacked over a leading q axis,
+  * a (tau+1)-slot ring buffer of PAST party params: at step t the
+    activated party m_t ~ Categorical(p) (Assumption 3) sees the OTHER
+    parties' outputs computed from params delayed by tau_j <= tau
+    (Assumption 4),
+  * the server params w_0.
+
+Each step is the paper's message pattern: party m uploads (c_m, c_hat_m)
+through the exchange's codec, the server computes h, h_bar, h_hat and
+returns (h, h_bar); party m forms the two-point estimate and updates w_m;
+the server forms Eq. (17) and updates w_0. The round itself (perturb,
+codec, coefficient, apply) is core/exchange.py's ZOExchange.
+
+The step is functional, like the reference's: it returns a new state and
+leaves the old one as it was. The activation and delay draws are jax's
+categorical and randint on the step's keys (utils/prng.py), made on the
+host, so m_t and the delays are Python ints. The model is a
+``TransformerVFLModel`` (the paper models have no batch adapters in the
+port: their device trainer, ``synrevel_step``, the scan ``train`` and the
+sharded path are not ported yet).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import VFLConfig
+from repro_torch.core.exchange import ZOExchange
+from repro_torch.utils import prng, trees, xla_math
+
+
+class AsyState(NamedTuple):
+    w0: dict
+    parties: dict          # stacked (q, ...)
+    hist: dict             # ring buffer (tau+1, q, ...)
+    step: int
+    key: tuple             # the run's key, a (k0, k1) uint32 pair
+
+
+def _gather_party(tree, m: int):
+    return trees.tree_map(lambda a: a[m], tree)
+
+
+def _stale_parties(hist, slots):
+    """hist leaves: (tau+1, q, ...); slots: q ints -> (q, ...) params, row
+    j taken from slot slots[j]."""
+    q = len(slots)
+    rows = torch.arange(q)
+    return trees.tree_map(
+        lambda h: h[torch.as_tensor(slots).to(h.device), rows.to(h.device)],
+        hist)
+
+
+def init_state(model, vfl: VFLConfig, key, device) -> AsyState:
+    k0, k1 = prng.split(key)
+    w0 = model.init_server(k0, device)
+    parties = model.init_parties_stacked(k1, device)
+    hist = trees.tree_map(
+        lambda a: a.unsqueeze(0).expand(
+            (vfl.max_delay + 1,) + tuple(a.shape)).clone(), parties)
+    return AsyState(w0, parties, hist, 0, tuple(key))
+
+
+def _activation_probs(vfl: VFLConfig) -> torch.Tensor:
+    if vfl.activation_probs is not None:
+        p = torch.tensor(vfl.activation_probs, dtype=torch.float32)
+        return p / p.sum()
+    return torch.full((vfl.num_parties,), 1.0 / vfl.num_parties,
+                      dtype=torch.float32)
+
+
+def draw_party_and_delays(vfl: VFLConfig, state: AsyState):
+    """The step's activated party m_t and per-party delays, as the
+    reference draws them: categorical over log p, randint in [0, tau],
+    the activated party's own delay set to 0."""
+    key = prng.fold_in(state.key, state.step)
+    m_t = prng.categorical(prng.fold_name(key, "party"),
+                           xla_math.log(_activation_probs(vfl)))
+    delays = prng.randint(prng.fold_name(key, "delay"), (vfl.num_parties,),
+                          0, vfl.max_delay + 1)
+    delays[m_t] = 0                 # a party's own params are fresh
+    return m_t, delays
+
+
+def asyrevel_step(model, vfl: VFLConfig, state: AsyState, batch,
+                  ex: ZOExchange | None = None):
+    """One AsyREVEL iteration (Algorithm 1 lines 2-11). Returns
+    (new_state, h)."""
+    ex = ex if ex is not None else ZOExchange.from_config(vfl)
+    tau = vfl.max_delay
+    key = prng.fold_in(state.key, state.step)
+    k_u, k_u0, k_c = (prng.fold_name(key, s) for s in ("u", "u0", "codec"))
+    x = model.party_args(batch)
+    y = model.server_args(batch)
+
+    # --- Assumption 3: activated party; Assumption 4: bounded delays -----
+    m_t, delays = draw_party_and_delays(vfl, state)
+    # w^{t-delta} = params after step t-1-delta; hist[s] holds the params
+    # written at the end of the latest step with step % (tau+1) == s
+    slots = [(state.step - 1 - d) % (tau + 1) for d in delays]
+    stale = _stale_parties(state.hist, slots)
+
+    # --- steps 4-5: the c table the server holds is what survived the
+    # up-link codec, one message (party) at a time -------------------------
+    cs = model.all_party_outputs(stale, x)
+    cs = model.map_party_outputs(
+        cs, lambda c, m: ex.roundtrip_up(c, prng.fold_in(k_c, m)))
+    w_m = _gather_party(state.parties, m_t)
+    x_m = model.slice_features(x, m_t)
+    h = model.server_forward(state.w0, cs, y)               # h_{i,m}
+    reg0 = model.regularizer(w_m)
+
+    def f_of(w_m_pert, k_dir):
+        c_hat = model.party_forward(w_m_pert, x_m, m_t)
+        c_hat = ex.roundtrip_up(c_hat, prng.fold_name(k_dir, "codec_hat"))
+        cs_hat = model.replace_party_output(cs, c_hat, m_t)
+        h_bar = model.server_forward(state.w0, cs_hat, y)   # h-bar_{i,m}
+        return h_bar + vfl.lam * model.regularizer(w_m_pert)
+
+    g_m = ex.party_gradient(w_m, k_u, h + vfl.lam * reg0, f_of)
+
+    # --- steps 6-7: party update (Eq. 15) ----------------------------------
+    parties = ex.apply_block(state.parties, m_t, g_m, vfl.lr_party)
+
+    # --- steps 9-11: server's own estimate + update (Eq. 17) ---------------
+    if vfl.perturb_server:
+        w0 = ex.server_update(
+            state.w0, k_u0, h,
+            lambda w0p: model.server_forward(w0p, cs, y),   # h-hat_{i,m}
+            vfl.lr_server)
+    else:
+        w0 = state.w0
+
+    slot = state.step % (tau + 1)
+
+    def write(hbuf, p):
+        out = hbuf.clone()
+        out[slot] = p
+        return out
+    hist = trees.tree_map(write, state.hist, parties)
+    return AsyState(w0, parties, hist, state.step + 1, state.key), h

@@ -283,6 +283,15 @@ class ZOExchange:
         return zoo.zo_gradient(u, coeff)
 
     # ---- update apply (Algorithm 1 line 7 / Eq. 15) ----------------------
+    def apply_block(self, stacked, m: int, g, lr: float):
+        """Block-coordinate update of party m inside the stacked (q, ...)
+        parameter tree: a new tree whose row m is w_m - lr * g."""
+        def one(a, gg):
+            out = a.clone()
+            out[m] = a[m] + (-lr * gg).to(a.dtype)
+            return out
+        return trees.tree_map(one, stacked, g)
+
     def apply_direction(self, w, u, coeff, lr: float):
         """Dense update from a materialized direction: w - lr * coeff * u.
         lr * coeff is formed with the caller's types (Python floats in

@@ -11,6 +11,8 @@ party) ever cross the boundary.
   * PaperLRModel  — generalized linear model, Eq. (22).
   * PaperFCNModel — party towers are 2-layer FCNs (d_m x 128, 128 x 1,
     ReLU) with scalar output; the server is a (q x 10) FC + softmax CE.
+  * TransformerVFLModel — framework scale: a dense architecture as the
+    server model F_0, fed by the parties' private embedding slices.
 
 Params are dicts of tensors; ``init_*`` take the device to build them on.
 A round's two tower evaluations go through ``party_forward_pair``: the
@@ -21,10 +23,13 @@ FCN's pair of first-layer products is one dual_matmul kernel
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.configs.base import VFLConfig
 from repro_torch.configs.paper_models import PaperFCNConfig, PaperLRConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import cross_entropy_loss, dense_init
+from repro_torch.models.layers import (cross_entropy_loss, dense_init,
+                                       embedding_init)
 from repro_torch.utils import prng, trees
 
 
@@ -91,6 +96,7 @@ class VFLModel:
 
     def slice_features(self, x, m: int):
         raise NotImplementedError
+
 
     # --- conveniences -----------------------------------------------------
     def init_parties_stacked(self, key, device):
@@ -186,3 +192,80 @@ class PaperFCNModel(VFLModel):
 
     def server_predict(self, w0, cs):
         return torch.argmax(cs @ w0["w"] + w0["b"], dim=-1)
+
+
+# --------------------------------------------------------- Transformer -----
+
+class TransformerVFLModel(VFLModel):
+    """Framework-scale VFL: a dense architecture as the server model F_0.
+
+    Party m privately owns columns [m*dq : (m+1)*dq) of the embedding
+    feature space (dq = d_model/q), its vertical feature slice, plus a
+    small MLP tower: c_m = tower_m(embed_m[tokens]), shaped (B, S, dq).
+    The server concatenates the q slices to (B, S, d_model) and runs the
+    backbone. Party params are f32 whatever the model's dtype is.
+    """
+
+    def __init__(self, model, vfl: VFLConfig):
+        cfg = model.cfg
+        if cfg.d_model % vfl.num_parties:
+            raise ValueError(f"d_model {cfg.d_model} must divide by q = "
+                             f"{vfl.num_parties} for the vertical embedding "
+                             "split")
+        self.model = model
+        self.vfl = vfl
+        self.num_parties = vfl.num_parties
+        self.dq = cfg.d_model // vfl.num_parties
+
+    def init_party(self, key, m: int, device):
+        cfg = self.model.cfg
+        k0, k1, k2 = prng.split(key, 3)
+        h = self.vfl.party_hidden
+        return {"embed": embedding_init(k0, cfg.vocab_size, self.dq, device,
+                                        torch.float32),
+                "w1": dense_init(k1, self.dq, h, device),
+                "w2": dense_init(k2, h, self.dq, device)}
+
+    def init_server(self, key, device):
+        return self.model.init(key, device)
+
+    def slice_features(self, x, m: int):
+        return x        # tokens are shared ids; the SLICE is the embedding
+
+    def party_forward(self, w_m, tokens, m: int):
+        e = w_m["embed"][tokens.long()]                 # (B, S, dq)
+        h = F.gelu(e @ w_m["w1"], approximate="tanh")   # jax.nn.gelu's
+        return e + h @ w_m["w2"]                        # residual tower
+
+    def all_party_outputs(self, stacked_w, tokens):
+        return torch.stack([
+            self.party_forward(trees.tree_map(lambda a: a[m], stacked_w),
+                               tokens, m)
+            for m in range(self.num_parties)], dim=2)   # (B, S, q, dq)
+
+    def replace_party_output(self, cs, c_new, m: int):
+        """cs with party m's slice (B, S, dq) swapped for c_new."""
+        out = cs.clone()
+        out[:, :, m] = c_new.to(cs.dtype)
+        return out
+
+    def map_party_outputs(self, cs, fn):
+        """fn(c_m, m) on each party's slice of the c table on its own: one
+        message per party, as the wire carries them (a codec sees one
+        party's upload at a time)."""
+        return torch.stack([fn(cs[:, :, m].contiguous(), m)   # (B, S, dq)
+                            for m in range(self.num_parties)], dim=2)
+
+    # batch adapters: what the parties and the server read of a batch
+    def party_args(self, batch):
+        return batch["tokens"]
+
+    def server_args(self, batch):
+        return batch
+
+    def server_forward(self, w0, cs, batch):
+        B, S = cs.shape[:2]
+        b = dict(batch)
+        b["embeds"] = cs.reshape(B, S, -1)              # concat party slices
+        loss, _ = self.model.loss(w0, b)
+        return loss

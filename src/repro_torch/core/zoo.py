@@ -9,6 +9,8 @@ same key. The fused kernel path lives in kernels/fused_round.py.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.utils import prng, trees
 
 
@@ -23,16 +25,26 @@ def direction_tree(key, tree, dist: str):
 
 
 def perturb(tree, key, mu: float, dist: str):
-    """w + mu * u. Returns (perturbed_tree, u_tree)."""
+    """w + mu * u, in each leaf's dtype. Returns (perturbed_tree, u_tree).
+    mu is bound to the leaf's dtype first, as jax binds a weak-typed
+    Python float (a bf16 leaf multiplies by bf16(mu))."""
     u = direction_tree(key, tree, dist)
-    pert = trees.tree_map(lambda w, d: w + mu * d.to(w.dtype), tree, u)
+    pert = trees.tree_map(
+        lambda w, d: w + torch.tensor(mu, dtype=w.dtype) * d.to(w.dtype),
+        tree, u)
     return pert, u
 
 
 def zo_coefficient(f_plus, f_base, mu: float):
     """The scalar [f(w+mu u) - f(w)] / mu: the only quantity that crosses
-    the network in ZOO-VFL besides the function values themselves."""
-    return (f_plus - f_base) / mu
+    the network in ZOO-VFL besides the function values themselves. A
+    tensor divides by mu as a tensor on its own device: PyTorch's CUDA
+    division by a Python scalar multiplies by the reciprocal, which is
+    not the reference's true division."""
+    diff = f_plus - f_base
+    if isinstance(diff, torch.Tensor):
+        return diff / torch.tensor(mu, dtype=diff.dtype, device=diff.device)
+    return diff / mu
 
 
 def zo_gradient(u_tree, coeff):

@@ -68,3 +68,18 @@ def make_paper_dataset(name: str, scale: float = 1.0, seed: int = 0):
         sparsity = 0.98 if d > 10_000 else 0.0    # rcv1 is sparse
         return make_classification(n, d, seed=seed, sparsity=sparsity), spec
     return make_mnist_like(n, d, spec.classes, seed=seed), spec
+
+
+def make_lm_dataset(n: int, seq_len: int, vocab: int, seed: int = 0):
+    """Synthetic token streams with local structure (Markov-ish bigrams) so
+    a real LM can actually reduce loss on it."""
+    rng = np.random.default_rng(seed)
+    trans = rng.integers(0, vocab, size=(vocab,))
+    toks = np.empty((n, seq_len), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, size=n)
+    for t in range(1, seq_len):
+        follow = rng.random(n) < 0.7
+        toks[:, t] = np.where(follow, trans[toks[:, t - 1]],
+                              rng.integers(0, vocab, size=n))
+    targets = np.roll(toks, -1, axis=1)
+    return toks, targets

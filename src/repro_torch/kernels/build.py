@@ -26,7 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("defended_encode", "zo_update", "dual_matmul")
+KERNELS = ("defended_encode", "zo_update", "dual_matmul",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -107,6 +108,14 @@ def load(name: str) -> ctypes.CDLL:
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
+    "flash_attention": {
+        # q, k, v, out, B, S, H, KV, hd, scale, causal, stream
+        f"flash_attention_{t}": (_P, _P, _P, _P,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_int, _P)
+        for t in ("f32", "bf16")
+    },
     "dual_matmul": {
         # x, ldx, w, u, mu, y0, y1, M, N, K, stream
         f"dual_matmul_{t}": (_P, ctypes.c_longlong, _P, _P, ctypes.c_float,

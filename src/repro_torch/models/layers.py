@@ -1,4 +1,7 @@
-"""Primitive layers of the paper models (functional, params as dicts)."""
+"""Primitive layers (functional, params as dicts of tensors): the paper
+models' dense layer and cross entropy, and the transformer's RMSNorm,
+RoPE, SwiGLU and embedding, mirroring the reference's models/layers.py.
+Inits draw the reference's ``jax.random.normal`` bits exactly."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,17 +11,75 @@ from repro_torch.utils import prng
 
 
 def dense_init(key, in_dim: int, out_dim: int, device,
-               scale: float | None = None) -> torch.Tensor:
-    """N(0, 1) * scale of shape (in_dim, out_dim); the draw is the
-    reference's ``jax.random.normal`` bit for bit, and the default scale
-    1/sqrt(in_dim) is bound to f32 before the multiply, as jax binds it."""
+               scale: float | None = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, 1) * scale of shape (in_dim, out_dim), cast to ``dtype``; the
+    draw is the reference's ``jax.random.normal`` bit for bit, and the
+    default scale 1/sqrt(in_dim) is bound to f32 before the multiply, as
+    jax binds it."""
     scale = scale if scale is not None else 1.0 / np.sqrt(in_dim)
-    return prng.normal(key, (in_dim, out_dim), device) \
-        * float(np.float32(scale))
+    return (prng.normal(key, (in_dim, out_dim), device)
+            * float(np.float32(scale))).to(dtype)
+
+
+def embedding_init(key, vocab: int, d_model: int, device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (prng.normal(key, (vocab, d_model), device)
+            * float(np.float32(0.02))).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """Normalize in f32, cast back, then scale by gamma in x's dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """Inverse frequencies in float64 numpy, as the reference computes
+    them (cast to f32 where they are used)."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S). Rotates the two halves of
+    the head dimension in f32, then casts back."""
+    hd = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(hd, theta).astype(np.float32),
+                            device=x.device)
+    ang = positions.float()[..., None] * freqs           # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_init(key, d_model: int, d_ff: int, device, dtype):
+    k1, k2, k3 = prng.split(key, 3)
+    return {"w_gate": dense_init(k1, d_model, d_ff, device, dtype=dtype),
+            "w_up": dense_init(k2, d_model, d_ff, device, dtype=dtype),
+            "w_down": dense_init(k3, d_ff, d_model, device, dtype=dtype)}
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu's x * (1 / (1 + exp(-x))), one rounding to x's dtype
+    per operation as XLA rounds it. torch.nn.functional.silu rounds once,
+    which in bf16 gives another value in over a third of the elements."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return x * (one / (one + torch.exp(-x)))
+
+
+def swiglu_apply(params, x: torch.Tensor) -> torch.Tensor:
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    return (silu(g) * u) @ params["w_down"]
 
 
 def cross_entropy_loss(logits, labels):
-    """Mean cross entropy: logsumexp(logits) - logits[label]."""
+    """Mean cross entropy: logsumexp(logits) - logits[label], in f32."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)

@@ -158,3 +158,51 @@ def sample_direction(k: Key, shape, dist: str, device) -> torch.Tensor:
     if dist == "rademacher":
         return rademacher_from_bits(bits(k, shape, device))
     raise ValueError(f"unknown direction distribution: {dist}")
+
+
+# ------------------------------------------- discrete draws (asyrevel_step) --
+# Both are jax 0.9.0's formulas on the bits of the same key; the draws are
+# a handful of values, so they run on the host (CPU tensors) and return
+# Python ints.
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(k: Key, shape) -> torch.Tensor:
+    """== jax.random.gumbel(k, shape, float32) in its default "low" mode:
+    -log(-log(u)), u = uniform(k, minval=tiny, maxval=1) (the affine map
+    is f32: (1 - tiny) rounds to 1, so u = max(tiny, floats + tiny))."""
+    f = uniform_from_bits(bits(k, shape, "cpu"))
+    tiny = torch.tensor(_F32_TINY, dtype=torch.float32)
+    u = torch.maximum(tiny, f * 1.0 + tiny)
+    return -xla_math.log(-xla_math.log(u))
+
+
+def categorical(k: Key, logits: torch.Tensor) -> int:
+    """== jax.random.categorical(k, logits) for 1-D logits: the Gumbel-max
+    trick, argmax(gumbel(k, logits.shape) + logits), first index on ties."""
+    logits = logits.detach().to("cpu", torch.float32)
+    if logits.dim() != 1:
+        raise ValueError("categorical takes 1-D logits")
+    return int(torch.argmax(gumbel(k, logits.shape) + logits))
+
+
+def randint(k: Key, shape, minval: int, maxval: int) -> list:
+    """== jax.random.randint(k, shape, minval, maxval) (int32), flattened
+    to a list of Python ints: two uint32 streams from split(k), each
+    reduced mod span, combined as (hi % span) * (2^32 % span) + lo % span
+    in wrapping uint32 arithmetic, then mod span again."""
+    if not -(1 << 31) <= minval < (1 << 31) or \
+            not -(1 << 31) <= maxval < (1 << 31):
+        raise ValueError("randint bounds must fit int32")
+    k1, k2 = split(k)
+    shape = tuple(int(s) for s in shape)
+    hi = bits(k1, shape, "cpu").reshape(-1).to(torch.int64) & _M32
+    lo = bits(k2, shape, "cpu").reshape(-1).to(torch.int64) & _M32
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    m16 = (1 << 16) % span
+    mult = ((m16 * m16) & _M32) % span       # the square wraps in uint32
+    off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
+    off = off % span
+    return [((minval + int(o)) + (1 << 31)) % (1 << 32) - (1 << 31)
+            for o in off]

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions on the card:
-defended_encode and zo_update bitwise, dual_matmul within a stated
-tolerance (its sums run in another order than cuBLAS's) and bitwise
-where only its own order is involved. No jax here: the machine with the card has none. Without a CUDA
+defended_encode and zo_update bitwise, dual_matmul and flash_attention
+within a stated tolerance (their sums run in another order than the
+plain versions') and bitwise where only their own order is involved, and
+a reduced vfl-zoo step on the card against the same step on the CPU. No jax here: the machine with the card has none. Without a CUDA
 device every test skips (the kernels have no CPU mode); run them there
 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
 import numpy as np
@@ -9,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.configs import DPConfig
-from repro_torch.kernels import dual_matmul, fused_round, ops, zo_update
+from repro_torch.kernels import (dual_matmul, flash_attention, fused_round,
+                                 ops, zo_update)
 from repro_torch.utils import prng
 
 pytestmark = [pytest.mark.torch, pytest.mark.gpu]
@@ -168,3 +170,98 @@ def test_dual_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.dual_matmul(x, w.t().contiguous().t(), u, 1.0)
     with pytest.raises(ValueError):
         ops.dual_matmul(x.cpu(), w, u, 1.0)
+
+
+# f32: max |kernel - plain| / max |plain| <= 1e-5, the sums in another
+# order (the online softmax over tiles against one softmax per row). bf16,
+# element by element: the kernel rounds its f32 result once, so each output
+# is within half a bf16 ulp (2^-8 of its size) of the plain version's f32
+# result before the cast, plus the f32 bound for the order of the sums.
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 256, 4, 4, 64),
+                                         (1, 200, 8, 2, 128),
+                                         (1, 1000, 4, 1, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vs_plain(cuda, B, S, H, KV, hd, causal,
+                                         dtype):
+    g = torch.Generator(cuda).manual_seed(S + H)
+    q, k, v = (torch.randn(B, S, n, hd, device=cuda, generator=g).to(dtype)
+               for n in (H, KV, KV))
+    n0 = flash_attention.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.flash_attention.launches == n0 + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal)
+    rel = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert rel <= FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:
+        want32 = flash_attention.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal)
+        allowed = 2.0 ** -8 * want32.abs() \
+            + FLASH_TOL[torch.float32] * want32.abs().max()
+        assert bool(((got.float() - want32).abs() <= allowed).all())
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError):
+        h32 = torch.zeros(1, 8, 4, 32, device=cuda)
+        ops.flash_attention(h32, h32, h32)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q.cpu(), q)
+    t = torch.zeros(1, 8, 64, 4, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError):
+        ops.flash_attention(t, t, t)
+
+
+def test_reduced_vfl_zoo_steps_on_the_card_match_the_cpu(cuda):
+    """3 fused int8 asyrevel steps of reduced qwen1.5-0.5b: the card
+    (kernels) against the CPU (plain versions), from the same keys. An ulp
+    of c can flip an int8 stochastic rounding, so losses get 1e-3."""
+    from repro_torch.launch import train
+    argv = ["--arch", "qwen1.5-0.5b", "--mode", "vfl-zoo", "--reduced",
+            "--steps", "3", "--batch-size", "2", "--seq-len", "64",
+            "--fused", "--codec", "int8", "--lr", "1e-2", "--log-every",
+            "100"]
+    n0 = flash_attention.flash_attention.launches
+    on_card = train.main(argv)["h"]
+    assert flash_attention.flash_attention.launches == n0 + 3 * 3 * 2
+    on_cpu = train.main(argv + ["--device", "cpu"])["h"]
+    assert max(abs(a - b) for a, b in zip(on_card, on_cpu)) < 1e-3
+
+
+def _reduced_bf16_h(device):
+    from repro_torch.configs import VFLConfig, get_config
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import make_batch_arrays
+    from repro_torch.models.model import build_model
+    cfg = get_config("qwen1.5-0.5b", reduced=True).replace(dtype="bfloat16")
+    vfl = VFLConfig(num_parties=4, mu=1e-3, lr_party=1e-2, lr_server=1e-2 / 4,
+                    fused=True, codec="int8")
+    _, init, step = step_lib.make_vfl_zoo_step(build_model(cfg), vfl)
+    state = init(prng.key(0), device)
+    data = make_batch_arrays(cfg, 64, 64, 0, device)
+    rng = np.random.default_rng(0)
+    h = []
+    for _ in range(3):
+        idx = torch.as_tensor(rng.integers(0, 64, 2), device=device)
+        state, loss = step(state, {k: a[idx] for k, a in data.items()})
+        h.append(float(loss))
+    return h
+
+
+def test_reduced_bf16_vfl_zoo_steps_on_the_card_match_the_cpu(cuda):
+    """The same in bf16, the dtype of the full-size run: the first h is one
+    forward (moved roundings spread through the layers: 2e-3), the later
+    ones follow ZO coefficients that divide such gaps by mu (5e-2), the
+    tolerances tests/test_torch_bf16.py holds the CPU port to."""
+    on_card, on_cpu = _reduced_bf16_h(cuda), _reduced_bf16_h("cpu")
+    gaps = [abs(a - b) for a, b in zip(on_card, on_cpu)]
+    assert gaps[0] < 2e-3 and max(gaps) < 5e-2

@@ -55,6 +55,49 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
     assert tr.X.device.type == "cpu"
 
 
+ZOO_ARGS = ["--arch", "qwen1.5-0.5b", "--mode", "vfl-zoo", "--reduced",
+            "--steps", "1", "--batch-size", "1", "--seq-len", "8"]
+
+
+def test_launcher_needs_a_gpu_unless_asked_for_the_cpu():
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(ZOO_ARGS)
+    res = train.main(ZOO_ARGS + ["--device", "cpu"])
+    assert res["device"] == "cpu" and len(res["h"]) == 1
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mode", "lm"], ["--transport", "tcp"], ["--data-parallel", "2"],
+    ["--network", "wan"], ["--serve", "4"], ["--dp-epsilon", "8",
+                                             "--dp-clip", "1"],
+    ["--ckpt-dir", "ckpt"], ["--trace", "tr"], ["--trace", "tr",
+                                                "--monitor"],
+    ["--dropout-at", "2"], ["--dp-clip", "1"]],
+    ids=lambda a: a[0])
+def test_launcher_refuses_what_the_port_does_not_run(extra, capsys):
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit) as exc:
+        train.parse_args(ZOO_ARGS + extra)
+    assert exc.value.code == 2
+    assert extra[0] in capsys.readouterr().err
+
+
+def test_launcher_defines_the_references_flags():
+    """The config-coherence rule reads whichever train.py it meets first,
+    so the port's launcher defines every flag the reference's does."""
+    def flags(path):
+        return {n.args[0].value for n in ast.walk(ast.parse(path.read_text()))
+                if isinstance(n, ast.Call) and getattr(n.func, "attr", "")
+                == "add_argument" and n.args
+                and isinstance(n.args[0], ast.Constant)}
+    ref = flags(ROOT / "src" / "repro" / "launch" / "train.py")
+    port = flags(ROOT / "src" / "repro_torch" / "launch" / "train.py")
+    assert ref <= port and port - ref == {"--device"}
+
+
 def test_static_analyzer_finds_nothing_in_the_port():
     from repro.analysis.core import analyze   # noqa: PLC0415
     report = analyze([ROOT / "src"])
