@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device and build: the card's name and power limit, TF32 off, and the
    four CUDA kernels built from src/repro_torch/kernels/csrc/ (one nvcc
-   per source, in parallel) into build/kernels/.
+   per source, in parallel) into build/kernels/; ptxas's register and
+   spill lines.
 2. Kernels: each kernel against its plain torch version on the card, at
    the main path's shapes and larger ones, with CUDA-event times (median
    of 20 after warm-up) and the bound (the larger of bytes over the
@@ -21,9 +22,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (causal at the vfl-zoo shape in bf16 and f32, yi-34b's GQA heads, a
    ragged S, full attention) within a stated relative tolerance, and in
    bf16 element by element within half a bf16 ulp of the plain version's
-   f32 result; its bound takes bf16 q.k at the tensor-core rate and p.v
-   at the f32 rate, and its library time is PyTorch's
-   scaled_dot_product_attention, which the port never calls.
+   f32 result. Its bf16 kernel runs on the tensor cores (``wgmma``, TMA),
+   which the build checks in the library's SASS (``HGMMA`` and
+   ``UTMALDG`` instructions, counted with ``cuobjdump``); its bf16 bound
+   takes both products at the tensor-core rate, the f32 bound both at the
+   f32 rate; its library time is PyTorch's scaled_dot_product_attention,
+   which the port never calls.
 3. Main path: the defended AsyREVEL party round (Algorithm 1,
    ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
    x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
@@ -59,7 +63,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
 round and the async experiment's configuration, and one step of the
 vfl-zoo cell, with ``torch.profiler``,
-printing the device-busy share, the kernels by device time, and what the
+printing the device-busy share, the kernels by device time, the
+flash_attention kernels' device time and launches, and what the
 eager threefry costs in that trace: each ``prng.bits`` and
 ``prng.sample_direction`` call is a ``record_function`` span, counted,
 with its host time and the device launches made inside it.
@@ -96,6 +101,21 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def tensor_core_route():
+    """The flash_attention library's SASS holds the Hopper instructions of
+    its bf16 kernel: HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build._target("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[sass flash_attention] {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention's SASS lacks the tensor-core "
+                             f"route: {counts}")
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -341,19 +361,16 @@ def flash_errors(got, q, k, v, causal):
 
 
 def flash_bound(B, S, H, KV, hd, esize, causal):
-    """(bytes time, operations time, bound_by) for one causal or full
+    """(bytes time, operations time, operations) for one causal or full
     attention: q, k, v read once and out written once; q.k and p.v over the
-    pairs the mask keeps, a multiply and an add each. q.k takes operands of
-    the input type into an f32 sum, which the bf16 tensor cores do at the
-    same accuracy; p.v takes p in f32, so it counts at the f32 rate, as does
-    all of the f32 case."""
+    pairs the mask keeps, a multiply and an add each. In bf16 both products
+    count at the tensor-core rate (the kernel's split of p into two bf16
+    halves is its own cost, not the work's); in f32 both at the f32 rate."""
     nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esize
     pairs = S * (S + 1) // 2 if causal else S * S
-    half_ops = 2 * B * H * hd * pairs
-    qk_rate = BF16_TC_FLOPS_PER_S if esize == 2 else F32_FLOPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = half_ops / qk_rate + half_ops / F32_FLOPS_PER_S
-    return t_bytes, t_ops, 2 * half_ops
+    n_ops = 2 * 2 * B * H * hd * pairs
+    rate = BF16_TC_FLOPS_PER_S if esize == 2 else F32_FLOPS_PER_S
+    return nbytes / HBM_BYTES_PER_S, n_ops / rate, n_ops
 
 
 def flash_phase(dev):
@@ -396,8 +413,6 @@ def flash_phase(dev):
                "plain_ms": plain, "library_ms": lib,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bf16_tensor_core_bound_ms": max(
-                   t_bytes, n_ops / BF16_TC_FLOPS_PER_S) * 1e3,
                "kernel_tflops": n_ops / (kern * 1e-3) / 1e12}
         log(json.dumps(row))
         if (B, S, H, KV, hd, dt) == (4, 2048, 16, 16, 64, "bf16"):
@@ -920,10 +935,15 @@ def profile_phase(dev, cell):
             n, us = n + cn, us + cus
         return n, us
 
+    flash = [e for e in dev_events if "flash_attention" in e.key]
     out = {"cell": cell, f"{unit}s": units, "wall_ms": wall_ms,
            f"ms_per_{unit}": wall_ms / units,
            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
            "device_launches": launches,
+           "flash_attention": {
+               "device_ms": sum(e.self_device_time_total
+                                for e in flash) / 1e3,
+               "launches": sum(e.count for e in flash)},
            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3,
                               e.count] for e in top]}
     for name in PROFILE_SPANS:
@@ -969,6 +989,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    tensor_core_route()
 
     if "--profile" in sys.argv[1:]:
         for cell in ("d7", "async", "zoo"):

@@ -3,13 +3,17 @@
 Every layer of the server model's full-sequence forward is causal
 self-attention over (B, S, H, hd) queries and (B, S, KV, hd) keys and
 values; the vfl-zoo step runs three such forwards (h, h_bar, h_hat) per
-step. The CUDA kernel (csrc/flash_attention.cu) replaces the reference's
+step. The CUDA kernels (csrc/flash_attention.cu) replace the reference's
 Pallas ``flash_attention_pallas`` and the GQA expansion of its
-``ops.flash_attention``: it reads q, k and v where the QKV projection
-and RoPE left them, maps query head h to kv head h // (H / KV), keeps m, l and acc in f32, and never builds the (S, S)
-score matrix. ``flash_attention_plain`` is its plain torch version (the
-reference's ``ref.flash_attention_ref`` math, GQA by repeat), which the
-wrapper takes for CPU tensors only.
+``ops.flash_attention``: they read q, k and v where the QKV projection
+and RoPE left them, map query head h to kv head h // (H / KV), keep m, l
+and acc in f32, and never build the (S, S) score matrix. bf16 runs on
+Hopper's tensor cores (TMA loads, ``wgmma`` for q.k and for p.v with p
+split into two bf16 halves, so the outputs stay as close to the f32
+result as with p in f32); f32 runs on the CUDA cores.
+``flash_attention_plain`` is their plain torch version (the reference's
+``ref.flash_attention_ref`` math, GQA by repeat), which the wrapper takes
+for CPU tensors only.
 """
 from __future__ import annotations
 

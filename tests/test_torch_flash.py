@@ -5,7 +5,9 @@ the reference's ``ref.flash_attention_ref`` (any S) and its Pallas
 ``ops.flash_attention`` in interpret mode (S a multiple of the block) on
 identical numpy inputs, with the reference tests' tolerances; the CUDA
 kernel is held against the plain version on the card
-(tests/test_torch_gpu.py and chip_smoke.py)."""
+(tests/test_torch_gpu.py and chip_smoke.py). The bf16 kernel's way with
+p (split into two bf16 halves for the p.v product) is emulated here and
+held to the reference's oracle within the card's element bound."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -125,3 +127,64 @@ def test_wrapper_rejects_mismatched_heads():
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros(1, 8, 2, 64),
                             torch.zeros(1, 8, 2, 32))
+
+
+# The bf16 CUDA kernel's numerics, emulated in plain torch: q.k in f32 (the
+# tensor cores' bf16 x bf16 products are exact in f32), the online softmax
+# over kv tiles of the kernel's height in base 2 with f32 m, l and p, l
+# summed from the f32 p, p split into bf16 p_hi + p_lo for the p.v
+# products (each exact in f32, summed in f32), and one rounding of acc / l
+# to bf16. Held element by element to the reference's f32 oracle on the
+# same bf16 inputs, with the element bound the card checks: |got - want32|
+# <= 2^-8 |want32| + 1e-5 max |want32|.
+def _kernel_emulation(q, k, v, causal, split):
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    bkv = 128 if hd == 64 else 64
+    c = torch.tensor(np.float32(np.float32(1 / np.sqrt(hd))
+                                * np.float32(np.log2(np.e))))
+    qf = q.float().transpose(1, 2)                          # (B, H, S, hd)
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    m = torch.full((B, H, S, 1), fa.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bkv):
+        s = qf @ kf[:, :, k0:k0 + bkv].transpose(-1, -2)
+        if causal:
+            cols = torch.arange(k0, min(k0 + bkv, S))[None, :]
+            s = torch.where(cols > rows, torch.tensor(fa.NEG_INF), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        p = torch.exp2(s * c - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        vt = vf[:, :, k0:k0 + bkv]
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vt
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vt
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
+
+
+def _element_ratio(got, want32):
+    allowed = 2.0 ** -8 * want32.abs() + 1e-5 * want32.abs().max()
+    return float(((got.float() - want32).abs() / allowed).max())
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal", [(1024, 2, 2, 64, True),
+                                              (512, 2, 1, 128, False),
+                                              (1000, 4, 2, 64, True)])
+def test_split_p_keeps_the_bf16_element_bound(S, H, KV, hd, causal):
+    """p = bf16(p) + bf16(p - bf16(p)) keeps every output within half a
+    bf16 ulp of the f32 result; p rounded once to bf16 (the control) does
+    not, so the check sees the error the split removes."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, S, H, KV, hd, "bf16", S + hd)
+    f32 = [jnp.asarray(a, jnp.float32) for a in (jq, jk, jv)]
+    want32 = torch.from_numpy(np.array(_ref_bh(*f32, causal)))
+    assert _element_ratio(_kernel_emulation(tq, tk, tv, causal, True),
+                          want32) <= 1.0
+    assert _element_ratio(_kernel_emulation(tq, tk, tv, causal, False),
+                          want32) > 1.0

@@ -182,7 +182,9 @@ FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("B,S,H,KV,hd", [(2, 256, 4, 4, 64),
                                          (1, 200, 8, 2, 128),
-                                         (1, 1000, 4, 1, 64)])
+                                         (1, 1000, 4, 1, 64),
+                                         (1, 1000, 8, 2, 128),
+                                         (2, 129, 4, 2, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_vs_plain(cuda, B, S, H, KV, hd, causal,
@@ -219,6 +221,19 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     t = torch.zeros(1, 8, 64, 4, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError):
         ops.flash_attention(t, t, t)
+
+
+def test_flash_attention_bf16_refuses_hd96_and_views(cuda):
+    """hd 96 and a view of one fused projection raise in bf16 too: no
+    path goes back to another kernel or to the plain version."""
+    n0 = flash_attention.flash_attention.launches
+    h96 = torch.zeros(1, 8, 4, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(h96, h96, h96)
+    qkv = torch.zeros(1, 8, 12, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:])
+    assert flash_attention.flash_attention.launches == n0
 
 
 def test_reduced_vfl_zoo_steps_on_the_card_match_the_cpu(cuda):
