@@ -77,25 +77,10 @@ def build_variant(name: str, source: str) -> ctypes.CDLL:
     return dll
 
 
-def device_ms(fn, n=20) -> float:
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def main(names) -> int:
     import torch
     import torch.nn.functional as F
-    from chip_smoke import card_line, time_ms
+    from chip_smoke import card_line, device_ms, time_ms
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 

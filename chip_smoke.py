@@ -18,7 +18,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and the batch-2048 and batch-64 shapes the driven paths give it) within
    a stated relative tolerance, plus exact checks: its perturbed product is
    bitwise its plain product at the weights that the zo_update kernel, and
-   the unfused uniform and gaussian perturbations, form. flash_attention
+   the unfused uniform and gaussian perturbations, form. It runs as
+   3xTF32 on the tensor cores (``wgmma``; ``HGMMA`` in its SASS). Besides
+   the single-call time: its device time and that of the two
+   ``torch.matmul`` calls that are its yardstick (20 calls queued between
+   two events, over 20; and the kernels' own durations in a
+   ``torch.profiler`` trace of 20 calls, over 20), and two bounds, the
+   CUDA-core one (4MKN at the f32 rate) and the tensor-core one its line
+   reports (3 x 4MKN at the TF32 rate, or the bytes). flash_attention
    (causal at the vfl-zoo shape in bf16 and f32, yi-34b's GQA heads, a
    ragged S, full attention) within a stated relative tolerance, and in
    bf16 element by element within half a bf16 ulp of the plain version's
@@ -85,6 +92,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+TF32_TC_FLOPS_PER_S = 495e12    # H100 SXM dense TF32 tensor cores
 # f32 operations per element of defended_encode, counted from the kernel's
 # source: the gaussian chain (uniform, open interval, log1p or log,
 # erf_inv's Horner, two products, the add) is ~64, Laplace's ~48; clip 2;
@@ -104,18 +112,22 @@ def card_line() -> str:
 
 
 def tensor_core_route():
-    """The flash_attention library's SASS holds the Hopper instructions of
-    its bf16 kernel: HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    """The built libraries' SASS holds the Hopper instructions of their
+    tensor-core kernels: HGMMA (wgmma) and UTMALDG (TMA loads) in
+    flash_attention's bf16 kernel, HGMMA in dual_matmul's."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build._target("flash_attention"))],
-                          capture_output=True, text=True, check=True).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    log(f"[sass flash_attention] {counts}")
-    if not all(counts.values()):
-        raise AssertionError(f"flash_attention's SASS lacks the tensor-core "
-                             f"route: {counts}")
+    for name, ops in (("flash_attention", ("HGMMA", "UTMALDG")),
+                      ("dual_matmul", ("HGMMA",))):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build._target(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: sass.count(op) for op in ops}
+        log(f"[sass {name}] {counts}")
+        if not all(counts.values()):
+            raise AssertionError(f"{name}'s SASS lacks the tensor-core "
+                                 f"route: {counts}")
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -133,6 +145,43 @@ def time_ms(fn, reps=20, warmup=3) -> float:
         e.synchronize()
         out.append(s.elapsed_time(e))
     return statistics.median(out)
+
+
+def device_ms(fn, n=20) -> float:
+    """n calls queued back to back between two events, over n: the
+    device's time per call, with the wrapper's host time hidden under the
+    device's (one call between two events holds 30-50 us of it)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def traced_ms(fn, n=20) -> float:
+    """The device time of fn's kernels per call, from ``torch.profiler``'s
+    trace of n calls: the sum of their durations over n, whatever the host
+    time between them (for a kernel of a few us the queued calls of
+    ``device_ms`` wait on the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
 
 
 def bitwise_equal(a, b) -> bool:
@@ -277,24 +326,44 @@ def dual_matmul_phase(dev):
             raise AssertionError(f"dual_matmul != plain at {(M, K, N)} {dt}: "
                                  f"relative error {rel} > {DUAL_TOL[dt]}")
         worst = max(worst, err)
-        kern = time_ms(lambda: ops.dual_matmul(x, w, u, mu))
+
+        def kernel():
+            return ops.dual_matmul(x, w, u, mu)
+
+        def library():
+            # the yardstick: torch.matmul(x, w) and torch.matmul(x, w +
+            # mu*u), the latter in f32 (w + mu*u is f32; .float() of f32 is
+            # x itself)
+            return (torch.matmul(x, w),
+                    torch.matmul(x.float(), w.float() + mu * u))
+
+        kern = time_ms(kernel)
         plain = time_ms(lambda: dual_matmul.dual_matmul_plain(x, w, u, mu))
-        # the yardstick: torch.matmul(x, w) and torch.matmul(x, w + mu*u),
-        # the latter in f32 (w + mu*u is f32; .float() of f32 is x itself)
-        lib = time_ms(lambda: (torch.matmul(x, w),
-                               torch.matmul(x.float(), w.float() + mu * u)))
+        lib = time_ms(library)
+        kern_dev, lib_dev = device_ms(kernel), device_ms(library)
+        kern_traced, lib_traced = traced_ms(kernel), traced_ms(library)
         esize = x.element_size()
         nbytes = (M * K + K * N) * esize + K * N * 4 + 2 * M * N * esize
         # both products are f32 arithmetic (w + mu*u is f32 whatever the
-        # input type): a multiply and an add per term, two products
+        # input type): a multiply and an add per term, two products. On
+        # the CUDA cores that is 4MKN at the f32 rate; the kernel runs it as
+        # 3xTF32 (bf16: 1 + 2 tf32 products), 3 x 4MKN at the TF32 rate
         n_ops = 4 * M * K * N
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S
+        n_tc = (3 if dt == "f32" else 1.5) * n_ops
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops, t_tc = n_ops / F32_FLOPS_PER_S, n_tc / TF32_TC_FLOPS_PER_S
         row = {"kernel": "dual_matmul", "shape": [M, K, N], "dtype": dt,
                "max_abs_err": err, "rel_err": rel, "tol": DUAL_TOL[dt],
                "kernel_ms": kern, "plain_ms": plain, "library_ms": lib,
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "kernel_tflops": n_ops / (kern * 1e-3) / 1e12}
+               "kernel_device_ms": kern_dev, "library_device_ms": lib_dev,
+               "kernel_traced_ms": kern_traced,
+               "library_traced_ms": lib_traced,
+               "cuda_core_bound_ms": max(t_bytes, t_ops) * 1e3,
+               "cuda_core_bound_by":
+                   "bytes" if t_bytes >= t_ops else "operations",
+               "bound_ms": max(t_bytes, t_tc) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+               "kernel_tflops": n_ops / (kern_traced * 1e-3) / 1e12}
         log(json.dumps(row))
         if (M, K, N) == (2048, 98, 128) and dt == "f32":
             timed = row

@@ -3,10 +3,11 @@
 Every AsyREVEL round evaluates the party tower twice, at w and at the
 perturbed w + mu*u (Eq. 15's two function values). Both first-layer
 products read the same x and w, so the CUDA kernel (csrc/dual_matmul.cu)
-stages each tile of x and w once, forms the perturbed tile in f32 as it
-loads it, and runs two f32 accumulators. It replaces the reference's
-Pallas ``dual_matmul_pallas``; ``dual_matmul_plain`` is its plain torch
-version, which the wrapper takes for CPU tensors only.
+reads each tile of x and w once, forms the perturbed tile in f32 as it
+loads it, and runs two f32 accumulators on Hopper's tensor cores (3xTF32:
+each f32 operand split into two tf32 halves, three products). It replaces
+the reference's Pallas ``dual_matmul_pallas``; ``dual_matmul_plain`` is its
+plain torch version, which the wrapper takes for CPU tensors only.
 """
 from __future__ import annotations
 

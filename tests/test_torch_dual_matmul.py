@@ -7,7 +7,9 @@ numpy inputs, with the reference test's tolerances; the CUDA kernel is
 held against the plain version on the card (tests/test_torch_gpu.py and
 chip_smoke.py). ``PaperFCNModel.party_forward_pair`` is held bitwise to
 two ``party_forward`` calls and, within f32 matmul tolerance, to the
-reference's one-dispatch party evaluation ``_party_fused_jit``."""
+reference's one-dispatch party evaluation ``_party_fused_jit``. The CUDA
+kernel's 3xTF32 arithmetic, which no CPU runs, is emulated here on the
+bits and held to the reference's oracle with the card's 1e-5 check."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,6 +106,117 @@ def test_perturbed_product_is_the_product_at_the_perturbed_weights():
     _, y1 = ops.dual_matmul(xt, wt, prng.rademacher_from_bits(b), mu)
     y0_p, _ = ops.dual_matmul(xt, w_p, torch.zeros_like(wt), mu)
     assert torch.equal(y1, y0_p)
+
+
+# The f32 CUDA kernel's numerics (3xTF32), emulated in plain torch: each
+# f32 operand split into hi = tf32(a) and lo = tf32(a - hi), both rounded as
+# cvt.rna.tf32.f32 rounds (to nearest, ties away from zero, 10 mantissa
+# bits), w + mu*u formed in f32 before its split, and x.w = x_hi.w_hi +
+# x_hi.w_lo + x_lo.w_hi with exact products. Held to the reference's oracle
+# with the card check's tolerance; one tf32 product (x_hi.w_hi) is the
+# control that must miss it.
+DUAL_TOL_F32 = 1e-5        # chip_smoke.py and tests/test_torch_gpu.py
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(a: torch.Tensor):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _three_tf32(x, w, u, mu, products=3):
+    wp = w + torch.as_tensor(np.float32(mu)) * u
+    xh, xl = _split(x)
+    out = []
+    for b in (w, wp):
+        bh, bl = _split(b)
+        terms = [(xh, bh), (xh, bl), (xl, bh)][:products]
+        out.append(sum(a.double() @ c.double() for a, c in terms).float())
+    return out
+
+
+def _rel_to_reference(got, x, w, u, mu):
+    want = ref_kernels.dual_matmul_ref(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(u), mu=mu)
+    scale = max(float(np.abs(np.asarray(y)).max()) for y in want)
+    return max(float(np.abs(g.numpy() - np.asarray(y)).max())
+               for g, y in zip(got, want)) / scale
+
+
+SPLIT_SHAPES = [(2048, 98, 128), (512, 4096, 256), (300, 97, 45)]
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
+def test_three_tf32_products_hold_the_f32_tolerance(M, K, N):
+    x, w, u = _inputs(M, K, N, seed=M + K)
+    got = _three_tf32(*map(torch.from_numpy, (x, w, u)), 1e-3)
+    assert _rel_to_reference(got, x, w, u, 1e-3) <= DUAL_TOL_F32
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
+def test_one_tf32_product_misses_the_f32_tolerance(M, K, N):
+    x, w, u = _inputs(M, K, N, seed=M + K)
+    got = _three_tf32(*map(torch.from_numpy, (x, w, u)), 1e-3, products=1)
+    assert _rel_to_reference(got, x, w, u, 1e-3) > 10 * DUAL_TOL_F32
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The bit trick is cvt.rna.tf32.f32: 10 mantissa bits kept, a half ulp
+    rounds away from zero, and a - hi is exact in f32."""
+    ulp = 2.0 ** -10
+    a = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, -(1 + ulp / 2),
+                      1 + 3 * ulp / 2, 3.0, 0.0], dtype=torch.float32)
+    hi = _tf32(a)
+    assert hi.tolist() == [1 + ulp, 1.0, -(1 + ulp), 1 + 2 * ulp, 3.0, 0.0]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        10000).astype(np.float32))
+    xh, xl = _split(x)
+    assert torch.equal((xh.double() + (x - xh).double()).float(), x)
+    assert float(((x.double() - xh.double() - xl.double()).abs()
+                  / x.double().abs()).max()) <= 2.0 ** -21
+
+
+def _truncate_to_f32(s: torch.Tensor) -> torch.Tensor:
+    f = s.float()
+    over = f.double().abs() > s.abs()
+    f[over] = torch.nextafter(f[over], torch.zeros_like(f[over]))
+    return f
+
+
+def _tensor_core_sum(x, w, stage_k):
+    """x.w as the kernel sums it, under a model of the tensor cores: each k8
+    step's 3 products are added into the wgmma accumulator exactly and the
+    result truncated to f32; every stage_k of k the accumulator is added
+    into an f32 total with round-to-nearest and restarted."""
+    xh, xl = _split(x)
+    wh, wl = _split(w)
+    total = torch.zeros(x.shape[0], w.shape[1])
+    for s0 in range(0, x.shape[1], stage_k):
+        acc = torch.zeros_like(total)
+        for k0 in range(s0, min(s0 + stage_k, x.shape[1]), 8):
+            k = slice(k0, k0 + 8)
+            for a, b in ((xh, wh), (xh, wl), (xl, wh)):
+                acc = _truncate_to_f32(acc.double()
+                                       + a[:, k].double() @ b[k].double())
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("stage_k,within", [(32, True), (4096, False)])
+def test_per_stage_totals_keep_a_truncating_accumulator_within_tolerance(
+        stage_k, within):
+    """A 4096-deep sum: with the kernel's 32-deep stages added into f32
+    totals the truncation stays within the f32 tolerance; one accumulator
+    over all of K (the control) drifts past it."""
+    x, w, _ = _inputs(64, 4096, 64, seed=9)
+    got = _tensor_core_sum(torch.from_numpy(x), torch.from_numpy(w), stage_k)
+    want = x.astype(np.float64) @ w.astype(np.float64)
+    rel = float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+    assert (rel <= DUAL_TOL_F32) == within
 
 
 def test_ops_zo_update_matches_reference_pytree_wrapper():

@@ -94,9 +94,14 @@ def _rel_err(got, want):
 DUAL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+# the D7 and async shapes, the reference bench's, ragged ones, a deep one,
+# M below one 64-row tile, N not a multiple of 8, K = 8j - 1 and 8j + 1
 @pytest.mark.parametrize("M,K,N", [(2048, 98, 128), (64, 98, 128),
                                    (256, 1024, 512), (1000, 98, 130),
-                                   (1, 1, 1), (65, 17, 63)])
+                                   (1, 1, 1), (65, 17, 63),
+                                   (4096, 4096, 512), (37, 98, 128),
+                                   (300, 63, 45), (129, 97, 131),
+                                   (2048, 4095, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dual_matmul_kernel_vs_plain(cuda, M, K, N, dtype):
     x, w, u = _dual_inputs(cuda, M, K, N, dtype, seed=M + K + N)
@@ -110,14 +115,35 @@ def test_dual_matmul_kernel_vs_plain(cuda, M, K, N, dtype):
     assert _rel_err(y1, r1) <= DUAL_TOL[dtype]
 
 
-def test_dual_matmul_kernel_takes_a_column_slice_of_x(cuda):
+@pytest.mark.parametrize("party", [1, 2])
+def test_dual_matmul_kernel_takes_a_column_slice_of_x(cuda, party):
+    """Party p's block X[:, 98p:98(p+1)] of the D7 features: party 2's base
+    is 16-byte aligned, party 1's is 8 bytes off (392 bytes in)."""
     X, w, u = _dual_inputs(cuda, 512, 784, 128, torch.float32, seed=1)
-    x = X[:, 196:294]                          # party 2's block, K = 98
+    x = X[:, 98 * party:98 * (party + 1)]
     got = ops.dual_matmul(x, w[:98].contiguous(),
                                   u[:98].contiguous(), 5e-2)
     want = ops.dual_matmul(x.contiguous(), w[:98].contiguous(),
                                    u[:98].contiguous(), 5e-2)
     assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+def test_dual_matmul_runs_on_the_tensor_cores(cuda):
+    """The built library's SASS holds HGMMA (wgmma) instructions."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).parent / "cuobjdump")
+    if not Path(cuobjdump).exists():
+        pytest.skip("needs cuobjdump to read the library's SASS")
+    build.load("dual_matmul")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build._target("dual_matmul"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert "HGMMA" in sass
 
 
 def test_dual_matmul_perturbed_product_is_exact(cuda):
