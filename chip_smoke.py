@@ -29,12 +29,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (causal at the vfl-zoo shape in bf16 and f32, yi-34b's GQA heads, a
    ragged S, full attention) within a stated relative tolerance, and in
    bf16 element by element within half a bf16 ulp of the plain version's
-   f32 result. Its bf16 kernel runs on the tensor cores (``wgmma``, TMA),
-   which the build checks in the library's SASS (``HGMMA`` and
-   ``UTMALDG`` instructions, counted with ``cuobjdump``); its bf16 bound
-   takes both products at the tensor-core rate, the f32 bound both at the
-   f32 rate; its library time is PyTorch's scaled_dot_product_attention,
-   which the port never calls.
+   f32 result. Both its kernels run on the tensor cores, which the build
+   checks in each kernel's own SASS functions (counted with
+   ``cuobjdump``): the bf16 one on ``wgmma`` and TMA (``HGMMA`` and
+   ``UTMALDG``), the f32 one as 3xTF32 on ``wgmma`` (``HGMMA``). Its bf16
+   bound takes both products at the tensor-core rate; its f32 rows carry
+   two, both products at the f32 rate of the CUDA cores and, as the line's
+   bound, three tf32 products each at the TF32 rate. Its library time is
+   PyTorch's scaled_dot_product_attention, which the port never calls; at
+   the vfl-zoo and yi-34b shapes the rows also carry both device times
+   (profiler-traced), and the f32 kernel must take less than SDPA at the
+   vfl-zoo shape.
 3. Main path: the defended AsyREVEL party round (Algorithm 1,
    ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
    x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
@@ -111,23 +116,40 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def tensor_core_route():
-    """The built libraries' SASS holds the Hopper instructions of their
-    tensor-core kernels: HGMMA (wgmma) and UTMALDG (TMA loads) in
-    flash_attention's bf16 kernel, HGMMA in dual_matmul's."""
+# (library, kernel, SASS instructions each of its functions must hold):
+# HGMMA (wgmma) and UTMALDG (TMA loads) in the bf16 flash_attention kernel,
+# HGMMA in the f32 one (3xTF32, no TMA) and in dual_matmul's
+TENSOR_CORE_SASS = (
+    ("flash_attention", "flash_attention_bf16_kernel", ("HGMMA", "UTMALDG")),
+    ("flash_attention", "flash_attention_f32_kernel", ("HGMMA",)),
+    ("dual_matmul", "dual_matmul_kernel", ("HGMMA",)))
+
+
+def sass_functions(name) -> dict:
+    """{function: its SASS} of the built library of kernel ``name``, as
+    ``cuobjdump -sass`` prints it."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    for name, ops in (("flash_attention", ("HGMMA", "UTMALDG")),
-                      ("dual_matmul", ("HGMMA",))):
-        sass = subprocess.run([str(cuobjdump), "-sass",
-                               str(build._target(name))],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        counts = {op: sass.count(op) for op in ops}
-        log(f"[sass {name}] {counts}")
-        if not all(counts.values()):
-            raise AssertionError(f"{name}'s SASS lacks the tensor-core "
-                                 f"route: {counts}")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {chunk.split("\n", 1)[0].strip(): chunk
+            for chunk in sass.split("Function : ")[1:]}
+
+
+def tensor_core_route():
+    """Each tensor-core kernel's own SASS functions (one per template
+    instance) hold the Hopper instructions of its route."""
+    for lib, kernel, ops in TENSOR_CORE_SASS:
+        funcs = {fn: text for fn, text in sass_functions(lib).items()
+                 if kernel in fn}
+        if not funcs:
+            raise AssertionError(f"{lib}'s SASS has no {kernel}")
+        for fn, text in funcs.items():
+            counts = {op: text.count(op) for op in ops}
+            log(f"[sass {kernel}] {fn} {counts}")
+            if not all(counts.values()):
+                raise AssertionError(f"{fn}'s SASS lacks the tensor-core "
+                                     f"route: {counts}")
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -430,16 +452,25 @@ def flash_errors(got, q, k, v, causal):
 
 
 def flash_bound(B, S, H, KV, hd, esize, causal):
-    """(bytes time, operations time, operations) for one causal or full
-    attention: q, k, v read once and out written once; q.k and p.v over the
-    pairs the mask keeps, a multiply and an add each. In bf16 both products
-    count at the tensor-core rate (the kernel's split of p into two bf16
-    halves is its own cost, not the work's); in f32 both at the f32 rate."""
+    """(bytes time, operations time, operations, the f32 kernel's tensor-core
+    time or None) for one causal or full attention: q, k, v read once and
+    out written once; q.k and p.v over the pairs the mask keeps, a multiply
+    and an add each. In bf16 both products count at the tensor-core rate
+    (the kernel's split of p into two bf16 halves is its own cost, not the
+    work's); in f32 both at the f32 rate of the CUDA cores, and beside that
+    as the f32 kernel runs them, 3xTF32: three tf32 products each at the
+    TF32 tensor-core rate."""
     nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esize
     pairs = S * (S + 1) // 2 if causal else S * S
     n_ops = 2 * 2 * B * H * hd * pairs
     rate = BF16_TC_FLOPS_PER_S if esize == 2 else F32_FLOPS_PER_S
-    return nbytes / HBM_BYTES_PER_S, n_ops / rate, n_ops
+    t_tc = None if esize == 2 else 3 * n_ops / TF32_TC_FLOPS_PER_S
+    return nbytes / HBM_BYTES_PER_S, n_ops / rate, n_ops, t_tc
+
+
+# the shapes whose rows also carry device times (the profiler's kernel
+# durations): the vfl-zoo path's and yi-34b's GQA heads, in both types
+FLASH_TRACED = ((4, 2048, 16, 16, 64), (1, 1024, 56, 8, 128))
 
 
 def flash_phase(dev):
@@ -467,14 +498,21 @@ def flash_phase(dev):
                 f"flash_attention != plain at {where}: an element is "
                 f"{elem} x (half a bf16 ulp + 1e-5 max) from the f32 result")
         worst = max(worst, err)
-        kern = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+
+        def kernel():
+            return ops.flash_attention(q, k, v, causal=causal)
+
+        def library():
+            # the yardstick, never called on the path: PyTorch's fused SDPA
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=KV != H)
+
+        kern = time_ms(kernel)
         plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal))
-        # the yardstick, never called on the path: PyTorch's fused SDPA
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=KV != H))
-        t_bytes, t_ops, n_ops = flash_bound(B, S, H, KV, hd,
-                                            q.element_size(), causal)
+        lib = time_ms(library)
+        t_bytes, t_ops, n_ops, t_tc = flash_bound(B, S, H, KV, hd,
+                                                  q.element_size(), causal)
         row = {"kernel": "flash_attention", "shape": [B, S, H, KV, hd],
                "dtype": dt, "causal": causal, "max_abs_err": err,
                "rel_err": rel, "tol": FLASH_TOL[dt],
@@ -483,9 +521,25 @@ def flash_phase(dev):
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "kernel_tflops": n_ops / (kern * 1e-3) / 1e12}
+        if t_tc is not None:
+            # as dual_matmul's rows: the kernel's own (3xTF32) bound, the
+            # CUDA cores' beside it
+            row["cuda_core_bound_ms"] = row["bound_ms"]
+            row["cuda_core_bound_by"] = row["bound_by"]
+            row["bound_ms"] = max(t_bytes, t_tc) * 1e3
+            row["bound_by"] = "bytes" if t_bytes >= t_tc else "operations"
+        if (B, S, H, KV, hd) in FLASH_TRACED:
+            row["kernel_traced_ms"] = traced_ms(kernel)
+            row["library_traced_ms"] = traced_ms(library)
         log(json.dumps(row))
         if (B, S, H, KV, hd, dt) == (4, 2048, 16, 16, 64, "bf16"):
             timed = row
+        if (B, S, H, KV, hd, dt) == (4, 2048, 16, 16, 64, "f32") and \
+                not row["kernel_traced_ms"] < row["library_traced_ms"]:
+            raise AssertionError(
+                f"the f32 flash_attention kernel takes "
+                f"{row['kernel_traced_ms']} ms of device time at the vfl-zoo "
+                f"shape, SDPA {row['library_traced_ms']}")
     return timed, worst
 
 

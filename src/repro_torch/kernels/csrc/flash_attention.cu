@@ -19,39 +19,76 @@
 // S 2048, H 16, hd 64) is 2 * 2*B*H*hd*pairs = 34.4 GFLOP (q.k and p.v
 // over the S(S+1)/2 pairs the mask keeps, 17.2 each) against 4 x 16.8 MB
 // of bf16 q, k, v and out: 0.0348 ms at the 989 TFLOP/s of the bf16
-// tensor cores, against 0.020 ms for the bytes at 3.35 TB/s.
+// tensor cores, against 0.020 ms for the bytes at 3.35 TB/s. In f32 the
+// same work as 3xTF32 is 3 x 34.4 GFLOP at the 495 TFLOP/s of the TF32
+// tensor cores, 0.208 ms (0.513 ms at the CUDA cores' 67 TFLOP/s).
 //
-// Two kernels.
-//
-// bf16: Hopper's tensor cores (`flash_attention_bf16_kernel`). One block
+// Two kernels, both on Hopper's tensor cores with the same frame: one block
 // of 384 threads per (b*H+h, 128-row q tile), every head's heaviest causal
 // tile launched first. Warpgroups 0 and 1 are consumers, 64 q rows each;
-// warpgroup 2 is the producer, whose first thread alone issues the TMA
-// loads (setmaxnreg works per warpgroup, so the producer is a whole
-// warpgroup that gives its registers up: 24 a thread, the consumers 240).
-// TMA reads 4-D tensor maps over (hd, heads, S, B) with boxes of (64, 1,
-// rows, 1) under the 128-byte swizzle, so GQA is the kv-head coordinate,
-// rows past S arrive as zeros (and are masked to -1e30 in the scores),
-// and hd 128 is two 64-column boxes. q is loaded once; k and v go through
-// a ring of 3 stages with full/empty mbarriers, so the producer's loads
-// overlap the consumers' math. kv tiles are 128 rows at hd 64 and 64 rows
-// at hd 128 (registers). Per kv tile, each consumer warpgroup:
-//  - s = q.k^T on `wgmma` (m64nBKVk16, both operands in shared memory, f32
-//    accumulators); bf16 x bf16 products are exact in f32, so only the
-//    order of the f32 sums differs from the plain version;
-//  - the mask, row max and sum over the 4 lanes sharing a row, and the
-//    online softmax in registers, in base 2: p = 2^(s * c - m) with c =
-//    scale * log2(e) and m the running max of s * c, corr = 2^(m_old -
-//    m_new), l = l * corr + the sum of the f32 p. One fma and one
-//    ex2.approx an element, where expf took ~9 instructions and the
-//    softmax set the pace (benchmarks/torch_flash_variants.py times both).
-//    Each p is within ~2^-22 (relative) of exp(s * scale - max) where p
-//    is not tiny, and the rounding of m scales a whole row alike and
-//    cancels in acc / l (the bound is worked out at `Consumer::softmax`);
+// warpgroup 2 is the producer, which gives registers up to them
+// (setmaxnreg works per warpgroup). Per kv tile, each consumer warpgroup
+// runs s = q.k^T on `wgmma` with f32 accumulators, the mask, row max and
+// sum over the 4 lanes sharing a row and the online softmax in registers,
+// in base 2 (`online_softmax`: p = 2^(s * c - m) with c = scale * log2(e)
+// and m the running max of s * c, corr = 2^(m_old - m_new), l = l * corr +
+// the sum of the f32 p; one fma and one ex2.approx an element, where expf
+// took ~9 instructions and set the pace), then p.v on `wgmma` with p from
+// registers (the accumulator layout is the A fragment's, up to the order of
+// columns). Only the kv tiles at or left of the diagonal are loaded when
+// causal; the ragged edge is masked.
+//
+// f32 (`flash_attention_f32_kernel`): 3xTF32. Each f32 operand a is split
+// into hi = tf32(a) and lo = tf32(a - hi), both rounded to nearest, ties
+// away (cvt.rna.tf32.f32's rounding, on the bits), and a product is hi.hi +
+// hi.lo + lo.hi on `wgmma.m64nNk8.f32.tf32.tf32` (the lo.lo term is below
+// f32's precision; one tf32 product misses the 1e-5 check, which
+// tests/test_torch_flash.py shows on an emulation of this kernel).
+//  - tf32 `wgmma` takes no transpose and the split passes through
+//    registers, so there is no TMA: the producer's 128 threads load q once
+//    and, per kv tile, k and v from device memory (16-byte loads for q and
+//    k, 4-byte ones for v, each warp's contiguous), split them and store
+//    them K-major under the 128-byte swizzle: q_hi and q_lo, and per set
+//    k_hi, k_lo and v^T's hi and lo. v^T's rows are stored in the order the
+//    p fragments hold the kv columns (`F32Consumer::split_p`), so p goes
+//    from the q.k accumulators to the p.v A fragments with no shuffle.
+//  - k and v^T have a full and an empty mbarrier each per set: the
+//    producer stores tile i+1's k while the consumers run tile i's softmax
+//    and p.v, and its v^T while they run tile i+1's q.k.
+//  - The tensor cores truncate their sums (as dual_matmul.cu measures). So
+//    q.k (q and k both from shared memory) runs each 32-deep chunk of hd
+//    into fresh accumulators, added into s with __fadd_rn, and each kv
+//    tile's p.v runs into fresh accumulators o_t that are folded into the
+//    f32 totals as o = fma(o, corr, o_t), the online softmax's own rescale.
+//  - Within a warpgroup a tile is serial: q.k, wait, softmax and split,
+//    p.v, wait, fold. The two warpgroups take turns to issue their
+//    products (named barriers), so one's softmax runs under the other's
+//    products: 5-9% faster at hd 64, ~1% slower at hd 128
+//    (benchmarks/torch_flash_variants.py, f32_no_turns).
+//  - Tiles: 64 kv rows and two sets at hd 64 (q 64 KB + 2 x 64 KB of shared
+//    memory); 32 kv rows and one set at hd 128 (q 128 KB + 64 KB). The
+//    consumers hold s, p_hi, p_lo, o_t and o in registers (200 a thread at
+//    hd 64, 208 at hd 128, after setmaxnreg; no spills).
+//  - What bounds it (H100, benchmarks/torch_flash_variants.py): at the
+//    vfl-zoo shape the products alone take ~63% of its time, and the
+//    producer's loads, split and stores are the largest piece of the rest.
+//
+// bf16 (`flash_attention_bf16_kernel`): TMA, with the producer's first
+// thread alone issuing the loads (24 registers a thread for the producer,
+// 240 for the consumers). TMA reads 4-D tensor maps over (hd, heads, S, B)
+// with boxes of (64, 1, rows, 1) under the 128-byte swizzle, so GQA is the
+// kv-head coordinate, rows past S arrive as zeros (and are masked to -1e30
+// in the scores), and hd 128 is two 64-column boxes. q is loaded once; k
+// and v go through a ring of 3 stages with full/empty mbarriers. kv tiles
+// are 128 rows at hd 64 and 64 rows at hd 128 (registers). Per kv tile,
+// each consumer warpgroup:
+//  - s = q.k^T (m64nBKVk16, both operands in shared memory); bf16 x bf16
+//    products are exact in f32, so only the order of the f32 sums differs
+//    from the plain version;
+//  - the online softmax (above);
 //  - acc *= corr, then acc += p_hi.v + p_lo.v on `wgmma` with p from
-//    registers (the accumulator layout is the A fragment's) and v the
-//    shared-memory B operand read MN-major, where p_hi = bf16(p) and
-//    p_lo = bf16(p - p_hi) (the subtraction is exact).
+//    registers and v the shared-memory B operand read MN-major, where p_hi
+//    = bf16(p) and p_lo = bf16(p - p_hi) (the subtraction is exact).
 // Within a warpgroup, tile i's q.k is issued with tile i-1's p.v, and
 // tile i's softmax runs while that p.v is on the tensor cores; the other
 // warpgroup's products fill the tensor cores while this one's softmax
@@ -70,20 +107,9 @@
 // its 1536 clocks of products), clusters that share k and v loads, a TMA
 // store of out.
 //
-// f32: the CUDA cores (`flash_attention_f32_kernel`); the tensor cores
-// give no f32 products at its 1e-5 tolerance short of a 3 x TF32 scheme.
-// Both products count at 67 TFLOP/s, 0.51 ms at the vfl-zoo shape. One
-// block of 256 threads per (64-row q tile, b*H+h), heaviest causal tiles
-// first; the q tile is staged once, then a loop over 64-row kv tiles
-// (only those at or left of the diagonal when causal, the ragged edge
-// masked) stages k transposed and v in shared memory. Each thread holds
-// a 4 x 4 tile of scores and a 4-row x hd/16-column tile of acc; the row
-// max and row sum reduce over the 16 lanes that share a row with
-// shuffles.
-//
-// Rounding: every CUDA-core product-sum is an explicit __fmaf_rn, every
-// other operation an __f*_rn intrinsic or expf (built with --fmad=false
-// too).
+// Rounding: every f32 operation outside the tensor cores is an __f*_rn
+// intrinsic or ex2.approx, and the tf32 and bf16 roundings are spelled out
+// (built with --fmad=false too).
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,232 +119,11 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-// ------------------------------------------------- f32, on the CUDA cores --
-
-constexpr int F32_BQ = 64;        // q rows per block
-constexpr int F32_BKV = 64;       // kv rows per tile
-constexpr int F32_THREADS = 256;
-constexpr int PAD = 4;            // keeps float4 rows aligned
-
-template <int HD>
-constexpr int f32_smem_floats() {
-  // qt[HD][BQ+PAD], kt[HD][BKV+PAD], vs[BKV][HD], pt[BKV][BQ+PAD]
-  return HD * (F32_BQ + PAD) + HD * (F32_BKV + PAD) + F32_BKV * HD +
-         F32_BKV * (F32_BQ + PAD);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(F32_THREADS)
-flash_attention_f32_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ out, int S, int H, int group,
-                           float scale, int causal) {
-  constexpr int BQ = F32_BQ, BKV = F32_BKV, THREADS = F32_THREADS;
-  constexpr int CG = HD / 64;     // groups of 4 acc columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                              // [HD][BQ + PAD]
-  float* kt = qt + HD * (BQ + PAD);              // [HD][BKV + PAD]
-  float* vs = kt + HD * (BKV + PAD);             // [BKV][HD]
-  float* pt = vs + BKV * HD;                     // [BKV][BQ + PAD]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;        // score columns tx*4.., acc column groups
-  const int ty = tid / 16;        // rows ty*4 .. ty*4+3
-  const int n_q = (S + BQ - 1) / BQ;
-  const int qtile = n_q - 1 - (int)blockIdx.x;   // heaviest tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, kvh = h / group;
-  const int q0 = qtile * BQ;
-
-  // element strides of the contiguous (B, S, heads, HD) layouts
-  const long long q_s = (long long)H * HD, kv_s = (long long)(H / group) * HD;
-  const float* qb = q + (long long)b * S * q_s + h * HD;
-  const float* kb = k + (long long)b * S * kv_s + kvh * HD;
-  const float* vb = v + (long long)b * S * kv_s + kvh * HD;
-
-  // q tile, transposed: qt[d][r]
-  for (int i = tid; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD;
-    const int gr = q0 + r;
-    qt[d * (BQ + PAD) + r] = gr < S ? qb[gr * q_s + d] : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][CG * 4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CG * 4; ++c) acc[i][c] = 0.0f;
-  }
-
-  int n_kv = (S + BKV - 1) / BKV;
-  if (causal) {
-    const int last = min(q0 + BQ - 1, S - 1);    // the tile's last row
-    n_kv = min(n_kv, last / BKV + 1);
-  }
-
-  for (int kt_i = 0; kt_i < n_kv; ++kt_i) {
-    const int k0 = kt_i * BKV;
-    __syncthreads();              // the previous tile's kt, vs, pt are done
-    for (int i = tid; i < BKV * HD; i += THREADS) {
-      const int r = i / HD, d = i % HD;
-      const int gr = k0 + r;
-      float kv_k = 0.0f, kv_v = 0.0f;
-      if (gr < S) {
-        kv_k = kb[gr * kv_s + d];
-        kv_v = vb[gr * kv_s + d];
-      }
-      kt[d * (BKV + PAD) + r] = kv_k;
-      vs[r * HD + d] = kv_v;
-    }
-    __syncthreads();
-
-    // scores s = q . k over hd, in ascending d
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(&qt[d * (BQ + PAD) + ty * 4]);
-      const float4 bb =
-          *reinterpret_cast<const float4*>(&kt[d * (BKV + PAD) + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(av[i], bv[j], s[i][j]);
-    }
-
-    // scale, mask, and the online-softmax update of each row
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
-        float x = __fmul_rn(s[i][j], scale);
-        if (kj >= S || (causal && kj > qi)) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(__fsub_rn(s[i][j], m_new));
-        s[i][j] = p;
-        sum = __fadd_rn(sum, p);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      corr[i] = expf(__fsub_rn(m[i], m_new));
-      l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), sum);
-      m[i] = m_new;
-    }
-    // p, transposed: pt[kv][r]
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float4 col = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(&pt[(tx * 4 + j) * (BQ + PAD) + ty * 4]) =
-          col;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ v, in ascending kv
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CG * 4; ++c) acc[i][c] = __fmul_rn(acc[i][c], corr[i]);
-    float pv[4][CG * 4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CG * 4; ++c) pv[i][c] = 0.0f;
-#pragma unroll 4
-    for (int r = 0; r < BKV; ++r) {
-      const float4 p4 =
-          *reinterpret_cast<const float4*>(&pt[r * (BQ + PAD) + ty * 4]);
-      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(&vs[r * HD + g * 64 + tx * 4]);
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            pv[i][g * 4 + c] = __fmaf_rn(pr[i], vv[c], pv[i][g * 4 + c]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CG * 4; ++c)
-        acc[i][c] = __fadd_rn(acc[i][c], pv[i][c]);
-  }
-
-  // out = acc / max(l, 1e-30), contiguous (B, S, H, hd)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* orow = out + (((long long)b * S + qi) * H + h) * HD;
-#pragma unroll
-    for (int g = 0; g < CG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        orow[g * 64 + tx * 4 + c] = __fdiv_rn(acc[i][g * 4 + c], den);
-  }
-}
-
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int B, int S, int H, int KV, float scale, int causal,
-               void* stream) {
-  constexpr int smem = f32_smem_floats<HD>() * (int)sizeof(float);
-  auto kern = flash_attention_f32_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((S + F32_BQ - 1) / F32_BQ), (unsigned)(B * H));
-  kern<<<grid, F32_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H,
-      H / KV, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------ bf16, on the tensor cores (Hopper) --
+// ------------------------------------------------- shared by both kernels --
 
 constexpr int BQ = 128;           // q rows per block, 64 per consumer
 constexpr int THREADS = 384;      // consumer warpgroups 0, 1; producer 2
-constexpr int STAGES = 3;         // the k/v ring
-constexpr int ROW_BYTES = 128;    // one swizzled box row: 64 bf16
-
-template <int HD>
-struct Tile {
-  static constexpr int BKV = HD == 64 ? 128 : 64;   // kv rows per tile
-  static constexpr int HALVES = HD / 64;            // 64-column boxes
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BKV * HD * 2;     // one of k, v
-  // q, then k and v per stage, all 1024-aligned (the swizzle's period);
-  // the mbarriers after; 1024 bytes of slack to align the base
-  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
-  static constexpr int SMEM = 1024 + BAR_OFF + (1 + 2 * STAGES) * 8;
-};
+constexpr int ROW_BYTES = 128;    // one swizzled row: 64 bf16 or 32 f32
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
@@ -347,17 +152,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(col), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
 // A wgmma shared-memory descriptor for a tile under the 128-byte swizzle:
 // 8-row groups 1024 bytes apart (the stride byte offset); the leading
 // byte offset is unused by a K-major operand, and by an MN-major one
@@ -384,12 +178,626 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
+template <int M, int N>
+__device__ __forceinline__ void reg_fence(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) reg_fence(r[i]);
+}
 template <int N>
 __device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The mask, and the online-softmax update in base 2: s becomes p (f32), and
+// l = l * corr + the row sum of that p. m is kept as max(s) * c with c =
+// scale * log2(e) (an f32 constant), so p = 2^(s * c - m) is one fma and
+// one ex2.approx, which is exp(s * scale - max(s * scale)) up to: the
+// rounding of m, a factor common to a row's p's that cancels in acc / l;
+// the roundings of c and of the fma, together at most ~2^-23 |s * c - m|
+// in the exponent, so ~2^-23 ln2 |s * c - m| relative on p (p < 2^-23
+// wherever that exceeds 2^-19); and ex2.approx's relative error, about
+// 2^-22 (PTX ISA). Against the half bf16 ulp (2^-9 relative) that the
+// bf16 element check allows each output, that is at most ~2^-10 of it;
+// against the f32 check's 1e-5 of the largest output, ~1/40 of it.
+// s[4j + 2i + e] is row r0 + 8i, kv column k0 + 8j + c0 + e (the wgmma
+// accumulator layout); NS = kv columns / 2.
+template <bool MASK, int NS>
+__device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               int k0, int r0, int c0, int S,
+                                               int causal, float c) {
+  float mx[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * ri + e];
+        if (MASK) {
+          const int kv = k0 + 8 * j + c0 + e;
+          if (kv >= S || (causal && kv > r0 + 8 * ri)) x = NEG_INF;
+        }
+        mx[ri][j % 2] = fmaxf(mx[ri][j % 2], x);
+      }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    float t = fmaxf(mx[ri][0], mx[ri][1]);
+    t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 1));
+    t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 2));
+    const float m_new = fmaxf(m[ri], __fmul_rn(t, c));
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * ri + e];
+        x = ex2(__fmaf_rn(x, c, -m_new));
+        sum[j % 2] = __fadd_rn(sum[j % 2], x);
+      }
+    float total = __fadd_rn(sum[0], sum[1]);
+    total = __fadd_rn(total, __shfl_xor_sync(0xffffffffu, total, 1));
+    total = __fadd_rn(total, __shfl_xor_sync(0xffffffffu, total, 2));
+    corr[ri] = ex2(__fsub_rn(m[ri], m_new));
+    l[ri] = __fadd_rn(__fmul_rn(l[ri], corr[ri]), total);
+    m[ri] = m_new;
+  }
+}
+
+// two code paths behind a branch (edge: the tile is ragged or crosses the
+// diagonal), which ptxas does not schedule across
+template <int NS>
+__device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int k0, int r0, int c0,
+                                             bool edge, int S, int causal,
+                                             float c) {
+  if (edge)
+    online_softmax<true>(s, m, l, corr, k0, r0, c0, S, causal, c);
+  else
+    online_softmax<false>(s, m, l, corr, k0, r0, c0, S, causal, c);
+}
+
+// ------------------------------ f32, 3xTF32 on the tensor cores (Hopper) --
+
+template <int HD>
+struct F32Tile {
+  static constexpr int BKV = HD == 64 ? 64 : 32;    // kv rows per tile
+  static constexpr int SETS = HD == 64 ? 2 : 1;     // k and v^T sets
+  static constexpr int NS = BKV / 2;                // s registers a thread
+  static constexpr int KSTEPS = BKV / 8;            // k8 steps of p.v
+  static constexpr int NO = HD / 2;                 // o registers a thread
+  // registers a thread after setmaxnreg (128 x producer + 256 x consumer =
+  // the 64512 of 384 threads at 168): at hd 128 the consumers hold o and
+  // o_t of 64 each, at hd 64 the producer gets the rest
+  static constexpr int PRODUCER_REGS = HD == 64 ? 104 : 88;
+  static constexpr int CONSUMER_REGS = HD == 64 ? 200 : 208;
+  static constexpr int Q_BYTES = BQ * HD * 4;       // one of q_hi, q_lo
+  static constexpr int OP_BYTES = BKV * HD * 4;     // k_hi, k_lo, vt_hi, vt_lo
+  // q_hi and q_lo, then per set k_hi, k_lo, vt_hi, vt_lo, all 1024-aligned
+  // (the swizzle's period); the mbarriers after: full and empty of k and of
+  // v^T per set; 1024 bytes of slack to align the base
+  static constexpr int BAR_OFF = 2 * Q_BYTES + SETS * 4 * OP_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 4 * SETS * 8;
+};
+
+// a = hi + lo to ~2^-22: hi = tf32(a), lo = tf32(a - hi), both rounded to
+// nearest, ties away from zero (cvt.rna.tf32.f32's rounding, done on the
+// bits with two integer operations); a - hi is exact in f32
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(__fsub_rn(a, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr,
+                                             const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+// The consumer warpgroups' turns: named barrier 1 + wg completes when
+// warpgroup wg waits on it and the other warpgroup has passed it the turn
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;" :: "r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" :: "r"(2 - wg) : "memory");
+}
+
+// generic-proxy writes to shared memory visible to wgmma's (async) reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// m64nNk8 with tf32 operands and f32 accumulators; accumulate = 0
+// overwrites d. ss: A (64 x 8) and B (8 x N) from shared memory, both
+// K-major. rs: A from registers, the m64k8 fragment a[i] = row r0 + 8 (i %
+// 2), column t + 4 (i / 2); B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// The producer's work on a (rows, HD) operand that lies row-major with row
+// stride `stride`: rows [row0, row0 + ROWS), zeros from row S on, split into
+// tf32 hi and lo and stored K-major under the 128-byte swizzle, (r, d) at
+// (d / 32) * ROWS * 128 + r * 128 + (((d % 32) / 4) ^ (r % 8)) * 16 + (d % 4)
+// * 4. A thread takes 8 pieces of 16 bytes a batch, all 8 loaded before the
+// first is split; eight consecutive threads store one 128-byte row
+// (conflict-free), a warp reads whole rows, 512 bytes.
+template <int HD, int ROWS>
+struct Rows {
+  static constexpr int PER_ROW = HD / 4;              // 16-byte pieces a row
+  static constexpr int BATCHES = ROWS * PER_ROW / (128 * 8);
+  static_assert(BATCHES * 128 * 8 == ROWS * PER_ROW, "rows do not divide");
+
+  static __device__ __forceinline__ void load(float4 (&x)[8],
+                                              const float* __restrict__ src,
+                                              long long stride, int row0,
+                                              int S, int pt, int batch) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int u = pt + 128 * (8 * batch + j);
+      const int r = row0 + u / PER_ROW;
+      x[j] = r < S ? __ldg(reinterpret_cast<const float4*>(
+                         src + r * stride + 4 * (u % PER_ROW)))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  static __device__ __forceinline__ void store(const float4 (&x)[8],
+                                               uint32_t hi, uint32_t lo,
+                                               int pt, int batch) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int u = pt + 128 * (8 * batch + j);
+      const int r = u / PER_ROW, c4 = u % PER_ROW;
+      const uint32_t off = (c4 / 8) * ROWS * ROW_BYTES + r * ROW_BYTES +
+                           (((c4 % 8) ^ (r % 8)) << 4);
+      const float a[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(a[e], h[e], l[e]);
+      st_shared_v4(hi + off, h);
+      st_shared_v4(lo + off, l);
+    }
+  }
+};
+
+// The producer's work on v: kv rows [row0, row0 + BKV), zeros from row S
+// on, as v^T (tf32 `wgmma` takes no transpose), split and stored K-major
+// under the swizzle, with each k8 step's kv rows in the order the p
+// fragments hold them: fragment column c is kv 2c for c < 4 and kv 2(c - 4)
+// + 1 for c >= 4 (see F32Consumer::split_p). So (n, kv 8j + e) lies at (j /
+// 4) * HD * 128 + n * 128 + ((2 (j % 4) + e % 2) ^ (n % 8)) * 16 + (e / 2) *
+// 4. A thread takes one column n and 4 k8 steps, 32 loads of 4 bytes (a
+// warp's are 128 contiguous bytes); eight consecutive threads store eight
+// rows n (conflict-free).
+template <int HD, int BKV>
+struct VT {
+  static constexpr int G = 128 / HD;                  // threads per column
+  static_assert(BKV / 8 == 4 * G, "a thread takes 4 k8 steps");
+
+  static __device__ __forceinline__ void load(float (&x)[32],
+                                              const float* __restrict__ src,
+                                              long long stride, int row0,
+                                              int S, int pt) {
+    const int n = pt % HD, j0 = pt / HD;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = row0 + 8 * (j0 + G * a) + e;
+        x[8 * a + e] = r < S ? __ldg(src + r * stride + n) : 0.0f;
+      }
+  }
+
+  static __device__ __forceinline__ void store(const float (&x)[32],
+                                               uint32_t hi, uint32_t lo,
+                                               int pt) {
+    const int n = pt % HD, j0 = pt / HD;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = j0 + G * a;
+#pragma unroll
+      for (int odd = 0; odd < 2; ++odd) {
+        const uint32_t off = (j / 4) * HD * ROW_BYTES + n * ROW_BYTES +
+                             (((2 * (j % 4) + odd) ^ (n % 8)) << 4);
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split(x[8 * a + 2 * c + odd], h[c], l[c]);
+        st_shared_v4(hi + off, h);
+        st_shared_v4(lo + off, l);
+      }
+    }
+  }
+};
+
+// What one consumer warpgroup computes with one kv tile, in the accumulator
+// layout of the bf16 kernel: s[4j + 2i + e] is row r0 + 8i, kv column k0 +
+// 8j + c0 + e; o and the tile's o_t likewise with hd columns.
+template <int HD>
+struct F32Consumer {
+  using T = F32Tile<HD>;
+  static constexpr int BKV = T::BKV, NS = T::NS, KSTEPS = T::KSTEPS,
+                       NO = T::NO, CHUNKS = HD / 32;
+
+  // s = q . k^T: q_hi.k_hi + q_hi.k_lo + q_lo.k_hi per k8 step of hd, each
+  // 32-deep chunk of hd into fresh accumulators (the tensor cores truncate
+  // their sums: one accumulator over hd 128 would spend half the f32 check's
+  // 1e-5 at full attention, tests/test_torch_flash.py); `sum_chunks` adds
+  // them into s in f32
+  static __device__ __forceinline__ void issue_qk(float (&sc)[CHUNKS][NS],
+                                                  uint32_t q_hi, uint32_t q_lo,
+                                                  uint32_t k_hi,
+                                                  uint32_t k_lo) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint32_t byte = (kk % 4) * 32;
+      const uint32_t qo = (kk / 4) * BQ * ROW_BYTES + byte;
+      const uint32_t ko = (kk / 4) * BKV * ROW_BYTES + byte;
+      const uint64_t qh = sw128_desc(q_hi + qo), ql = sw128_desc(q_lo + qo);
+      const uint64_t kh = sw128_desc(k_hi + ko), kl = sw128_desc(k_lo + ko);
+      wgmma_tf32_ss(sc[kk / 4], qh, kh, kk % 4 > 0);
+      wgmma_tf32_ss(sc[kk / 4], qh, kl, 1);
+      wgmma_tf32_ss(sc[kk / 4], ql, kh, 1);
+    }
+  }
+
+  static __device__ __forceinline__ void sum_chunks(float (&sc)[CHUNKS][NS]) {
+#pragma unroll
+    for (int ch = 1; ch < CHUNKS; ++ch)
+#pragma unroll
+      for (int i = 0; i < NS; ++i) sc[0][i] = __fadd_rn(sc[0][i], sc[ch][i]);
+  }
+
+  // p, split into tf32 hi and lo, as the A fragments of the p.v k8 steps,
+  // with no data moved between threads: a thread holds kv columns 2t and 2t
+  // + 1 of each k8 step (t = lane % 4) where the fragment wants columns t
+  // and t + 4, so fragment column t takes kv 2t and column t + 4 kv 2t + 1,
+  // and v^T's rows are stored in that order (VT)
+  static __device__ __forceinline__ void split_p(const float (&p)[NS],
+                                                 uint32_t (&p_hi)[KSTEPS][4],
+                                                 uint32_t (&p_lo)[KSTEPS][4]) {
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j) {
+      const float a[4] = {p[4 * j], p[4 * j + 2], p[4 * j + 1], p[4 * j + 3]};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split(a[r], p_hi[j][r], p_lo[j][r]);
+    }
+  }
+
+  // o_t = p . v into fresh accumulators (a sum BKV deep): p_hi.v_hi +
+  // p_hi.v_lo + p_lo.v_hi per k8 step of kv
+  static __device__ __forceinline__ void issue_pv(
+      float (&o_t)[NO], const uint32_t (&p_hi)[KSTEPS][4],
+      const uint32_t (&p_lo)[KSTEPS][4], uint32_t vt_hi, uint32_t vt_lo) {
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t off = (kk / 4) * HD * ROW_BYTES + (kk % 4) * 32;
+      const uint64_t vh = sw128_desc(vt_hi + off), vl = sw128_desc(vt_lo + off);
+      wgmma_tf32_rs(o_t, p_hi[kk], vh, kk > 0);
+      wgmma_tf32_rs(o_t, p_hi[kk], vl, 1);
+      wgmma_tf32_rs(o_t, p_lo[kk], vh, 1);
+    }
+  }
+
+  // o = o * corr + o_t, one rounding: the online softmax's own rescale
+  // takes the tile's sums into the f32 totals
+  static __device__ __forceinline__ void fold(float (&o)[NO],
+                                              const float (&corr)[2],
+                                              const float (&o_t)[NO]) {
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      o[i] = __fmaf_rn(o[i], corr[(i / 2) % 2], o_t[i]);
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int S, int H, int group,
+                           float scale, int causal) {
+  using T = F32Tile<HD>;
+  using C = F32Consumer<HD>;
+  constexpr int BKV = T::BKV, SETS = T::SETS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_hi = base, q_lo = base + T::Q_BYTES;
+  const uint32_t bars = base + T::BAR_OFF;
+  // operand w (0 k_hi, 1 k_lo, 2 vt_hi, 3 vt_lo) of kv tile i
+  auto op = [&](int i, int w) {
+    return base + 2 * T::Q_BYTES + ((i % SETS) * 4 + w) * T::OP_BYTES;
+  };
+  auto k_full = [&](int i) { return bars + 8 * (i % SETS); };
+  auto v_full = [&](int i) { return bars + 8 * (SETS + i % SETS); };
+  auto k_empty = [&](int i) { return bars + 8 * (2 * SETS + i % SETS); };
+  auto v_empty = [&](int i) { return bars + 8 * (3 * SETS + i % SETS); };
+
+  // blocks start in the order of their linear index, x fastest: every
+  // head's heaviest causal q tile first
+  const int n_q = (S + BQ - 1) / BQ;
+  const int qtile = n_q - 1 - (int)blockIdx.y;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kvh = h / group;
+  const int q0 = qtile * BQ;
+  int n_kv = (S + BKV - 1) / BKV;
+  if (causal) n_kv = min(n_kv, min(q0 + BQ - 1, S - 1) / BKV + 1);
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < SETS; ++st) {
+      mbar_init(k_full(st), 128);
+      mbar_init(v_full(st), 128);
+      mbar_init(k_empty(st), 256);
+      mbar_init(v_empty(st), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: loads, splits and stores every operand ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                 :: "n"(T::PRODUCER_REGS));
+    const int pt = threadIdx.x - 256;
+    // element strides of the contiguous (B, S, heads, HD) layouts
+    const long long q_s = (long long)H * HD, kv_s = (long long)(H / group) * HD;
+    const float* qb = q + (long long)b * S * q_s + h * HD;
+    const float* kb = k + (long long)b * S * kv_s + kvh * HD;
+    const float* vb = v + (long long)b * S * kv_s + kvh * HD;
+    float4 x[8];
+    // q once; the consumers see it with tile 0's k
+#pragma unroll 1
+    for (int batch = 0; batch < Rows<HD, BQ>::BATCHES; ++batch) {
+      Rows<HD, BQ>::load(x, qb, q_s, q0, S, pt, batch);
+      Rows<HD, BQ>::store(x, q_hi, q_lo, pt, batch);
+    }
+    // tile i's k goes into its set once both consumers are done with tile
+    // i - SETS's q.k, its v^T once they are done with that tile's p.v; the
+    // loads are issued before the waits
+    for (int i = 0; i < n_kv; ++i) {
+      const uint32_t parity = ((i / SETS) - 1) & 1;
+      Rows<HD, BKV>::load(x, kb, kv_s, i * BKV, S, pt, 0);
+      if (i >= SETS) mbar_wait(k_empty(i), parity);
+      Rows<HD, BKV>::store(x, op(i, 0), op(i, 1), pt, 0);
+      fence_proxy_async();
+      mbar_arrive(k_full(i));
+      float y[32];
+      VT<HD, BKV>::load(y, vb, kv_s, i * BKV, S, pt);
+      if (i >= SETS) mbar_wait(v_empty(i), parity);
+      VT<HD, BKV>::store(y, op(i, 2), op(i, 3), pt);
+      fence_proxy_async();
+      mbar_arrive(v_full(i));
+    }
+  } else {
+    // ---- consumers: 64 q rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;"
+                 :: "n"(T::CONSUMER_REGS));
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const int row_first = q0 + wg * 64;
+    // the last kv tile this warpgroup's rows can see; later tiles are only
+    // waited for and released
+    int n_kv_wg = n_kv;
+    if (causal) n_kv_wg = min(n_kv, min(row_first + 63, S - 1) / BKV + 1);
+    const uint32_t qh = q_hi + wg * 64 * ROW_BYTES;
+    const uint32_t ql = q_lo + wg * 64 * ROW_BYTES;
+    const float c = __fmul_rn(scale, 1.4426950408889634f);     // log2(e)
+    auto edge = [&](int i) {
+      return (i + 1) * BKV > S || (causal && (i + 1) * BKV - 1 > row_first);
+    };
+
+    float o[C::NO];
+#pragma unroll
+    for (int i = 0; i < C::NO; ++i) o[i] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, corr[2];
+    // The two warpgroups take turns to issue their products, q.k and p.v
+    // alike, warpgroup 0 first: each waits for its turn, issues, and passes
+    // the turn on. So the tensor cores run one's products while the other
+    // waits for its own q.k and runs its softmax. Past its own last tile a
+    // warpgroup only takes and passes its turns, and releases the tiles;
+    // warpgroup 1's last turn has no taker.
+    if (wg == 1) turn_pass(wg);
+    for (int i = 0; i < n_kv_wg; ++i) {
+      const uint32_t parity = (i / SETS) & 1;
+      float sc[C::CHUNKS][C::NS], o_t[C::NO];
+      uint32_t p_hi[C::KSTEPS][4], p_lo[C::KSTEPS][4];
+      mbar_wait(k_full(i), parity);
+      turn_wait(wg);
+      wgmma_fence();
+      C::issue_qk(sc, qh, ql, op(i, 0), op(i, 1));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait_all();
+      reg_fence(sc);
+      mbar_arrive(k_empty(i));
+      C::sum_chunks(sc);
+      float (&s)[C::NS] = sc[0];
+      softmax_step(s, m, l, corr, i * BKV, r0, c0, edge(i), S, causal, c);
+      C::split_p(s, p_hi, p_lo);
+      mbar_wait(v_full(i), parity);
+      turn_wait(wg);
+      wgmma_fence();
+      C::issue_pv(o_t, p_hi, p_lo, op(i, 2), op(i, 3));
+      wgmma_commit();
+      if (wg == 0 || i + 1 < n_kv) turn_pass(wg);
+      wgmma_wait_all();
+      reg_fence(o_t);
+      reg_fence(p_hi);          // read by the p.v wgmmas until here
+      reg_fence(p_lo);
+      mbar_arrive(v_empty(i));
+      C::fold(o, corr, o_t);
+    }
+    for (int i = n_kv_wg; i < n_kv; ++i) {
+      const uint32_t parity = (i / SETS) & 1;
+      mbar_wait(k_full(i), parity);
+      turn_wait(wg);
+      turn_pass(wg);
+      mbar_arrive(k_empty(i));
+      mbar_wait(v_full(i), parity);
+      turn_wait(wg);
+      if (wg == 0 || i + 1 < n_kv) turn_pass(wg);
+      mbar_arrive(v_empty(i));
+    }
+
+    // out = o / max(l, 1e-30); ragged rows skipped
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int qi = r0 + 8 * ri;
+      if (qi >= S) continue;
+      const float den = fmaxf(l[ri], 1e-30f);
+      float* orow = out + (((long long)b * S + qi) * H + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + c0) =
+            make_float2(__fdiv_rn(o[4 * j + 2 * ri], den),
+                        __fdiv_rn(o[4 * j + 2 * ri + 1], den));
+    }
+  }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               int B, int S, int H, int KV, float scale, int causal,
+               void* stream) {
+  using T = F32Tile<HD>;
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+  auto kern = flash_attention_f32_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
+  kern<<<grid, THREADS, T::SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H,
+      H / KV, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------ bf16, on the tensor cores (Hopper) --
+
+constexpr int STAGES = 3;         // the k/v ring
+
+template <int HD>
+struct Tile {
+  static constexpr int BKV = HD == 64 ? 128 : 64;   // kv rows per tile
+  static constexpr int HALVES = HD / 64;            // 64-column boxes
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BKV * HD * 2;     // one of k, v
+  // q, then k and v per stage, all 1024-aligned (the swizzle's period);
+  // the mbarriers after; 1024 bytes of slack to align the base
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + (1 + 2 * STAGES) * 8;
+};
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
 }
 
 // m64nNk16 with bf16 operands and f32 accumulators. ss: A (64 x 16, K-major)
@@ -459,12 +867,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -511,69 +913,13 @@ struct Consumer {
                      sw128_desc(v_st + (hf * BKV + kk * 16) * ROW_BYTES));
   }
 
-  // mask, and the online-softmax update in base 2: s becomes p (f32), and
-  // l = l * corr + the row sum of that p. m is kept as max(s) * c with c =
-  // scale * log2(e) (an f32 constant), so p = 2^(s * c - m) is one fma and
-  // one ex2.approx, which is exp(s * scale - max(s * scale)) up to: the
-  // rounding of m, a factor common to a row's p's that cancels in acc / l;
-  // the roundings of c and of the fma, together at most ~2^-23 |s * c - m|
-  // in the exponent, so ~2^-23 ln2 |s * c - m| relative on p (p < 2^-23
-  // wherever that exceeds 2^-19); and ex2.approx's relative error, about
-  // 2^-22 (PTX ISA). Against the half bf16 ulp (2^-9 relative) that the
-  // element check allows each output, that is at most ~2^-10 of it.
-  template <bool MASK>
-  static __device__ __forceinline__ void softmax(float (&s)[NS], float (&m)[2],
-                                                 float (&l)[2],
-                                                 float (&corr)[2], int k0,
-                                                 int r0, int c0, int S,
-                                                 int causal, float c) {
-    float mx[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
-#pragma unroll
-    for (int j = 0; j < NS / 4; ++j)
-#pragma unroll
-      for (int ri = 0; ri < 2; ++ri)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[4 * j + 2 * ri + e];
-          if (MASK) {
-            const int kv = k0 + 8 * j + c0 + e;
-            if (kv >= S || (causal && kv > r0 + 8 * ri)) x = NEG_INF;
-          }
-          mx[ri][j % 2] = fmaxf(mx[ri][j % 2], x);
-        }
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      float t = fmaxf(mx[ri][0], mx[ri][1]);
-      t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 1));
-      t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 2));
-      const float m_new = fmaxf(m[ri], __fmul_rn(t, c));
-      float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < NS / 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[4 * j + 2 * ri + e];
-          x = ex2(__fmaf_rn(x, c, -m_new));
-          sum[j % 2] = __fadd_rn(sum[j % 2], x);
-        }
-      float total = __fadd_rn(sum[0], sum[1]);
-      total = __fadd_rn(total, __shfl_xor_sync(0xffffffffu, total, 1));
-      total = __fadd_rn(total, __shfl_xor_sync(0xffffffffu, total, 2));
-      corr[ri] = ex2(__fsub_rn(m[ri], m_new));
-      l[ri] = __fadd_rn(__fmul_rn(l[ri], corr[ri]), total);
-      m[ri] = m_new;
-    }
-  }
-
+  // the mask and the online softmax (online_softmax)
   static __device__ __forceinline__ void softmax(float (&s)[NS], float (&m)[2],
                                                  float (&l)[2],
                                                  float (&corr)[2], int k0,
                                                  int r0, int c0, bool edge,
                                                  int S, int causal, float c) {
-    if (edge)
-      softmax<true>(s, m, l, corr, k0, r0, c0, S, causal, c);
-    else
-      softmax<false>(s, m, l, corr, k0, r0, c0, S, causal, c);
+    softmax_step(s, m, l, corr, k0, r0, c0, edge, S, causal, c);
   }
 
   // p as two bf16 halves in the A fragments: register r of k step kk holds

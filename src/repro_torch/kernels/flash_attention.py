@@ -7,10 +7,13 @@ step. The CUDA kernels (csrc/flash_attention.cu) replace the reference's
 Pallas ``flash_attention_pallas`` and the GQA expansion of its
 ``ops.flash_attention``: they read q, k and v where the QKV projection
 and RoPE left them, map query head h to kv head h // (H / KV), keep m, l
-and acc in f32, and never build the (S, S) score matrix. bf16 runs on
-Hopper's tensor cores (TMA loads, ``wgmma`` for q.k and for p.v with p
-split into two bf16 halves, so the outputs stay as close to the f32
-result as with p in f32); f32 runs on the CUDA cores.
+and acc in f32, and never build the (S, S) score matrix. Both types run
+on Hopper's tensor cores. bf16: TMA loads, ``wgmma`` for q.k and for p.v
+with p split into two bf16 halves, so the outputs stay as close to the
+f32 result as with p in f32. f32: 3xTF32 on ``wgmma``, every operand
+split into tf32 hi + lo and each product hi.hi + hi.lo + lo.hi, with the
+tensor cores' truncating sums kept short (32-deep chunks of q.k, fresh
+p.v accumulators per kv tile, both added into f32 totals).
 ``flash_attention_plain`` is their plain torch version (the reference's
 ``ref.flash_attention_ref`` math, GQA by repeat), which the wrapper takes
 for CPU tensors only.

@@ -7,7 +7,11 @@ identical numpy inputs, with the reference tests' tolerances; the CUDA
 kernel is held against the plain version on the card
 (tests/test_torch_gpu.py and chip_smoke.py). The bf16 kernel's way with
 p (split into two bf16 halves for the p.v product) is emulated here and
-held to the reference's oracle within the card's element bound."""
+held to the reference's oracle within the card's element bound, and so
+is the f32 kernel's 3xTF32 arithmetic with the tensor cores' truncating
+sums, within the card's f32 tolerance; the f32 kernel's hand-off of p
+from the q.k accumulators to the p.v fragments is checked against the
+PTX fragment layouts."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,3 +192,194 @@ def test_split_p_keeps_the_bf16_element_bound(S, H, KV, hd, causal):
                           want32) <= 1.0
     assert _element_ratio(_kernel_emulation(tq, tk, tv, causal, False),
                           want32) > 1.0
+
+
+# The f32 CUDA kernel's numerics (3xTF32 on the tensor cores), emulated in
+# plain torch: q, k, p and v each split into hi = tf32(a) and lo = tf32(a -
+# hi), rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero,
+# 10 mantissa bits); each product hi.hi + hi.lo + lo.hi per k8 step, every
+# product added exactly into the accumulator and the sum truncated to f32
+# (the tensor cores' way, as tests/test_torch_dual_matmul.py models it);
+# q.k into fresh accumulators per 32-deep chunk of hd, added in f32; the
+# online softmax over the kernel's kv tiles in base 2 with f32 m, l and p;
+# each tile's p.v into fresh
+# accumulators folded into the f32 totals as o = fma(o, corr, o_t). Held to
+# the reference's oracle with the card check's tolerance; one tf32 product
+# each for q.k and p.v is the control that must miss it.
+FLASH_TOL_F32 = 1e-5       # chip_smoke.py and tests/test_torch_gpu.py
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(a: torch.Tensor):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _truncate_to_f32(s: torch.Tensor) -> torch.Tensor:
+    f = s.float()
+    over = f.double().abs() > s.abs()
+    f[over] = torch.nextafter(f[over], torch.zeros_like(f[over]))
+    return f
+
+
+def _tensor_core_product(a, b, products):
+    """a @ b over the last two dims as the kernel forms it: per k8 step the
+    first ``products`` of hi.hi, hi.lo, lo.hi, each added exactly into the
+    accumulator and the sum truncated to f32."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    terms = [(ah, bh), (ah, bl), (al, bh)][:products]
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            acc = _truncate_to_f32(acc + x[..., k0:k0 + 8].double()
+                                   @ y[..., k0:k0 + 8, :].double()).double()
+    return acc.float()
+
+
+def _f32_kernel_emulation(q, k, v, causal, products=3, qk_chunk=32):
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    bkv = 64 if hd == 64 else 32
+    c = torch.tensor(np.float32(np.float32(1 / np.sqrt(hd))
+                                * np.float32(np.log2(np.e))))
+    qf = q.transpose(1, 2)                                  # (B, H, S, hd)
+    kf = k.repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.repeat_interleave(G, 2).transpose(1, 2)
+    m = torch.full((B, H, S, 1), fa.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    o = torch.zeros((B, H, S, hd))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bkv):
+        kt, vt = kf[:, :, k0:k0 + bkv], vf[:, :, k0:k0 + bkv]
+        s = sum(_tensor_core_product(
+            qf[..., d0:d0 + qk_chunk],
+            kt[..., d0:d0 + qk_chunk].transpose(-1, -2), products)
+            for d0 in range(0, hd, qk_chunk))
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(cols > rows, torch.tensor(fa.NEG_INF), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        # p = 2^fma(s, c, -m): one rounding of s * c - m
+        p = torch.exp2((s.double() * c.double() - m_new.double()).float())
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o_t = _tensor_core_product(p, vt, products)
+        o = (o.double() * corr.double() + o_t.double()).float()
+        m = m_new
+    return (o / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+def _rel_to_the_oracle(got, jq, jk, jv, causal):
+    want = np.asarray(_ref_bh(jq, jk, jv, causal))
+    return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+
+
+F32_EMULATION_CASES = [(1024, 2, 2, 64, True), (512, 2, 1, 128, False),
+                       (1000, 4, 2, 64, True), (300, 2, 2, 128, True)]
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal", F32_EMULATION_CASES)
+def test_three_tf32_products_hold_the_f32_tolerance(S, H, KV, hd, causal):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, S, H, KV, hd, "f32", S + hd)
+    got = _f32_kernel_emulation(tq, tk, tv, causal)
+    assert _rel_to_the_oracle(got, jq, jk, jv, causal) <= FLASH_TOL_F32
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal", F32_EMULATION_CASES)
+def test_one_tf32_product_misses_the_f32_tolerance(S, H, KV, hd, causal):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, S, H, KV, hd, "f32", S + hd)
+    got = _f32_kernel_emulation(tq, tk, tv, causal, products=1)
+    assert _rel_to_the_oracle(got, jq, jk, jv, causal) > FLASH_TOL_F32
+
+
+def test_qk_chunks_halve_the_truncation_of_one_accumulator_over_hd():
+    """Full attention at hd 128, where max |out| is small: one truncating
+    accumulator over hd spends about half the f32 tolerance in this model,
+    the kernel's 32-deep chunks about half as much."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, 512, 2, 1, 128, "f32", 640)
+    chunks = _rel_to_the_oracle(_f32_kernel_emulation(tq, tk, tv, False),
+                                jq, jk, jv, False)
+    one = _rel_to_the_oracle(_f32_kernel_emulation(tq, tk, tv, False,
+                                                   qk_chunk=128),
+                             jq, jk, jv, False)
+    assert chunks < one / 1.5 and one > FLASH_TOL_F32 / 3
+
+
+# Where the f32 kernel's p fragments and v^T meet (csrc/flash_attention.cu,
+# F32Consumer::split_p and VT::store), after the PTX ISA's figures for
+# wgmma: thread (warp w, lane ln) of a warpgroup, t = ln % 4, r0 = 16w + ln
+# // 4; the m64nN f32 accumulator holds d[4j + 2i + e] = (row r0 + 8i,
+# column 8j + 2t + e); the m64k8 tf32 A fragment wants a[x] = (row r0 + 8
+# (x % 2), column t + 4 (x // 2)); a K-major B operand under the 128-byte
+# swizzle holds (k, n) of the tile at n * 128 + ((k / 4) ^ (n % 8)) * 16 +
+# (k % 4) * 4 within its 32-deep chunk, and k8 step kk starts (kk % 4) * 32
+# bytes in.
+def _vt_offset(n, kv, hd):
+    """VT::store's byte offset of v^T's (n, kv) within its tile."""
+    j, e = kv // 8, kv % 8
+    return ((j // 4) * hd * 128 + n * 128
+            + (((2 * (j % 4) + e % 2) ^ (n % 8)) << 4) + (e // 2) * 4)
+
+
+def _b_offset(kk, c, n, hd):
+    """The byte wgmma reads for (k = c, n) of k8 step kk of the K-major
+    v^T operand."""
+    k = (kk % 4) * 8 + c
+    return (kk // 4) * hd * 128 + n * 128 + (((k // 4) ^ (n % 8)) << 4) \
+        + (k % 4) * 4
+
+
+def _p_fragments(p, kv_of_column):
+    """The A operand of each k8 step that split_p hands wgmma, from the
+    accumulator registers d of each thread, (steps, 64, 8)."""
+    steps = p.shape[1] // 8
+    A = torch.full((steps, 64, 8), float("nan"))
+    for w in range(4):
+        for ln in range(32):
+            t, r0 = ln % 4, 16 * w + ln // 4
+            d = {4 * j + 2 * i + e: p[r0 + 8 * i, 8 * j + 2 * t + e]
+                 for j in range(steps) for i in range(2) for e in range(2)}
+            for j in range(steps):
+                a = (d[4 * j], d[4 * j + 2], d[4 * j + 1], d[4 * j + 3])
+                for x in range(4):
+                    A[j, r0 + 8 * (x % 2), t + 4 * (x // 2)] = a[x]
+    # every fragment column x of every row is the kv column kv_of_column[x]
+    for j in range(steps):
+        for x in range(8):
+            assert torch.equal(A[j, :, x], p[:, 8 * j + kv_of_column[x]])
+    return A
+
+
+@pytest.mark.parametrize("hd,bkv", [(64, 64), (128, 32)])
+def test_p_fragments_meet_the_permuted_vt_rows(hd, bkv):
+    """p goes from the q.k accumulators into the p.v A fragments with no
+    shuffle, fragment column c holding kv 2c (c < 4) or 2(c - 4) + 1; v^T's
+    rows stored in that order make the product the plain p @ v, bitwise in
+    f32 on integer-valued inputs. In kv's own order (the control) it is
+    not."""
+    rng = np.random.default_rng(hd)
+    p = torch.from_numpy(rng.integers(-8, 9, (64, bkv)).astype(np.float32))
+    v = torch.from_numpy(rng.integers(-8, 9, (bkv, hd)).astype(np.float32))
+    perm = [2 * c if c < 4 else 2 * (c - 4) + 1 for c in range(8)]
+    A = _p_fragments(p, perm)
+    # v^T as VT::store lays it out, read back as wgmma reads B
+    smem = {}
+    for n in range(hd):
+        for kv in range(bkv):
+            smem[_vt_offset(n, kv, hd)] = v[kv, n]
+    assert len(smem) == hd * bkv                 # no two elements collide
+    Bop = torch.tensor([[[float(smem[_b_offset(kk, c, n, hd)])
+                          for n in range(hd)] for c in range(8)]
+                        for kk in range(bkv // 8)])
+    for kk in range(bkv // 8):
+        assert torch.equal(Bop[kk], v[8 * kk + torch.tensor(perm)])
+    got = sum(A[kk] @ Bop[kk] for kk in range(bkv // 8))
+    assert torch.equal(got, p @ v)
+    Bnat = torch.stack([v[8 * kk:8 * kk + 8] for kk in range(bkv // 8)])
+    assert not torch.equal(sum(A[kk] @ Bnat[kk] for kk in range(bkv // 8)),
+                           p @ v)

@@ -233,6 +233,30 @@ def test_flash_attention_kernel_vs_plain(cuda, B, S, H, KV, hd, causal,
         assert bool(((got.float() - want32).abs() <= allowed).all())
 
 
+def test_flash_attention_kernels_run_on_the_tensor_cores(cuda):
+    """Each of the built library's kernel functions (bf16 and f32, hd 64
+    and 128) holds HGMMA (wgmma) instructions in its own SASS."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).parent / "cuobjdump")
+    if not Path(cuobjdump).exists():
+        pytest.skip("needs cuobjdump to read the library's SASS")
+    build.load("flash_attention")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build._target("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {chunk.split("\n", 1)[0]: chunk
+             for chunk in sass.split("Function : ")[1:]}
+    for kernel in ("flash_attention_f32_kernel",
+                   "flash_attention_bf16_kernel"):
+        mine = [text for name, text in funcs.items() if kernel in name]
+        assert len(mine) == 2 and all("HGMMA" in text for text in mine)
+
+
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(1, 8, 4, 64, device=cuda)
     with pytest.raises(TypeError):
