@@ -6,16 +6,26 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-1. Device and build: the card's name and power limit, TF32 off, and the
-   four CUDA kernels built from src/repro_torch/kernels/csrc/ (one nvcc
-   per source, in parallel) into build/kernels/; ptxas's register and
-   spill lines.
+1. Device and build: the card's name, power limit and top SM clock, TF32
+   off, and the five CUDA kernels built from src/repro_torch/kernels/csrc/
+   (one nvcc per source, in parallel) into build/kernels/; ptxas's
+   register and spill lines, and the integer instructions of the draw
+   kernel's SASS.
 2. Kernels: each kernel against its plain torch version on the card, at
    the main path's shapes and larger ones, with CUDA-event times (median
    of 20 after warm-up) and the bound (the larger of bytes over the
-   memory rate and operations over the f32 rate). defended_encode and
-   zo_update are bitwise; dual_matmul (f32 and bf16, ragged shapes too,
-   and the batch-2048 and batch-64 shapes the driven paths give it) within
+   memory rate and operations over the rate of their pipe: f32, or for
+   threefry's rotates and xors the INT32 lanes). defended_encode draws its
+   noise and rounding bits from the keys in the kernel, at 2048, 2^21 and
+   2^24 for every codec x mechanism (and clip only, and int8 without a
+   rounding key), bitwise equal to the plain chain on the eager bits of
+   the same keys; its rows also carry the profiler-traced time and the
+   time of the same kernel reading pre-made bits from device memory. The
+   draw kernel (bits, normal, rademacher) is bitwise equal to the eager
+   chain at 2048, 12 544, 2^24 and qwen1.5-0.5b's embedding (155 582 464),
+   and on a counter range across 2^32. zo_update is bitwise; dual_matmul
+   (f32 and bf16, ragged shapes too, and the batch-2048 and batch-64
+   shapes the driven paths give it) within
    a stated relative tolerance, plus exact checks: its perturbed product is
    bitwise its plain product at the weights that the zo_update kernel, and
    the unfused uniform and gaussian perturbations, form. It runs as
@@ -44,8 +54,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
    x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
    fused int8 + gaussian DP + rademacher, 10 rounds of 8 party updates.
-   Launch counters are zeroed just before it and read just after: one
-   dual_matmul per party round, fused or not; losses must be finite, wire
+   Launch counters are zeroed just before it and read just after, and
+   every count is exact: per fused party round 2 defended_encode, 6
+   zo_update, 1 dual_matmul and 6 draws (one per perturbed leaf: 4 of the
+   party's, 2 of the server's), plus one draw per initial weight; per
+   unfused round 1 dual_matmul and 10 draws (the 6 directions, and the
+   noise and rounding bits of c and c_hat); losses must be finite, wire
    bytes exact, and the unfused run bitwise equal. Then the same port on
    the card against the port on the CPU on a small problem, and an
    undefended D7 training run (scale 0.01, 1200 updates) whose loss must
@@ -54,8 +68,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    vfl-zoo --parties 4 --batch-size 4 --seq-len 2048 --steps 5 --fused
    --codec int8`` through ``launch.train.main``, at full width and all 24
    layers (random weights from the seed). Counters zeroed just before it
-   and read just after: exactly 72 flash_attention and 5 defended_encode
-   launches per step and none of the other two; every h finite, the first
+   and read just after: exactly 72 flash_attention, 5 defended_encode and
+   17 draws (the gaussian directions) per step, 181 draws of the initial
+   weights, and none of the other two; every h finite, the first
    within 1.0 of ln(vocab). Seconds per step, peak memory, then the time
    split of 2 more steps (direction draws, server forwards, party towers,
    up-link, rest), then a reduced run on the card against the CPU (3
@@ -66,7 +81,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    directions, 1 ms simulated compute per party round, party 3 a 1.4x
    straggler. ``run_async`` (1200 updates) and ``run_sync`` (150 rounds),
    each with the counters zeroed just before it and read just after:
-   exactly 1200 updates and 1200 dual_matmul launches each, falling loss,
+   exactly 1200 updates, 1200 dual_matmul and 6 x 1200 draw launches each
+   (the directions of 4 party and 2 server leaves an update), falling loss,
    exact wire bytes; both wall-clock times and their ratio.
 6. The ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -76,10 +92,13 @@ traces 2 serial rounds (16 party updates) of each D7 cell, the defended
 round and the async experiment's configuration, and one step of the
 vfl-zoo cell, with ``torch.profiler``,
 printing the device-busy share, the kernels by device time, the
-flash_attention kernels' device time and launches, and what the
-eager threefry costs in that trace: each ``prng.bits`` and
-``prng.sample_direction`` call is a ``record_function`` span, counted,
-with its host time and the device launches made inside it.
+flash_attention kernels' device time and launches, and what the draws
+cost in that trace: each ``prng.bits`` and ``prng.sample_direction``
+call is a ``record_function`` span, counted, with its host time and the
+device launches the profiler ties to it (torch's own: it ties a launch
+made through ctypes to no span); the port's kernels are counted by the
+names of their functions, so the draw kernel's launches stand beside the
+spans' calls (one each; a uniform direction adds its norm's launches).
 
 It imports nothing of jax or of the reference package ``repro``.
 """
@@ -98,6 +117,16 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TF32_TC_FLOPS_PER_S = 495e12    # H100 SXM dense TF32 tensor cores
+# INT32 lanes per SM and clock (Hopper: 16 in each of its 4 partitions); the
+# rate is that times the SMs times the top SM clock nvidia-smi reports
+INT32_LANES_PER_SM = 64
+# threefry2x32 integer operations per 32-bit word that only the INT32 pipe
+# runs: 20 rotates (one funnel shift each) and 21 xors (prng.cuh). Its 32
+# adds the compiler issues partly as IMAD on the FMA pipe, so the least
+# time of the integer work is max(41 / 64, 73 / 128) SM clocks a word: the
+# INT32 pipe's 41 (the SASS of the bits draw kernel holds 100 SHF and 107
+# LOP3 for its 5 words, 4 in the loop and 1 in the tail)
+INT32_OPS_PER_WORD = 41
 # f32 operations per element of defended_encode, counted from the kernel's
 # source: the gaussian chain (uniform, open interval, log1p or log,
 # erf_inv's Horner, two products, the add) is ~64, Laplace's ~48; clip 2;
@@ -114,6 +143,28 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s(sms: int) -> float:
+    """The card's INT32 rate: 64 lanes an SM a clock, at its top SM clock
+    (``clocks.max.sm``)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return INT32_LANES_PER_SM * sms * float(mhz) * 1e6
+
+
+def ops_bound(nbytes, int_ops, f32_ops, int_rate):
+    """(bound ms, what bounds it, and each of the three times in ms): bytes
+    at the memory rate, INT32-pipe operations at the INT32 rate and f32
+    operations at the f32 rate; the pipes run side by side, so the least
+    time is the largest of the three."""
+    times = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "int32_ms": int_ops / int_rate * 1e3,
+             "f32_ms": f32_ops / F32_FLOPS_PER_S * 1e3}
+    top = max(times, key=times.get)
+    return times[top], "bytes" if top == "bytes_ms" else "operations", times
 
 
 # (library, kernel, SASS instructions each of its functions must hold):
@@ -134,6 +185,15 @@ def sass_functions(name) -> dict:
                           capture_output=True, text=True, check=True).stdout
     return {chunk.split("\n", 1)[0].strip(): chunk
             for chunk in sass.split("Function : ")[1:]}
+
+
+def draw_sass():
+    """The integer instructions of each draw-kernel instance's SASS (the
+    bits instance holds 5 words: 4 in its loop, 1 in its tail)."""
+    for fn, text in sass_functions("prng_draw").items():
+        counts = {op: text.count(f" {op}") for op in
+                  ("SHF.", "LOP3.", "IADD3", "IMAD", "FFMA")}
+        log(f"[sass prng_draw] {fn} {counts}")
 
 
 def tensor_core_route():
@@ -187,23 +247,34 @@ def device_ms(fn, n=20) -> float:
     return s.elapsed_time(e) / n
 
 
-def traced_ms(fn, n=20) -> float:
+def traced_ms(fn, n=20, tries=5) -> float:
     """The device time of fn's kernels per call, from ``torch.profiler``'s
     trace of n calls: the sum of their durations over n, whatever the host
     time between them (for a kernel of a few us the queued calls of
-    ``device_ms`` wait on the host)."""
+    ``device_ms`` wait on the host). fn launches the same kernels on every
+    call, so a trace whose kernel count is not a multiple of n lost events
+    (seen on the card: none, or about half) and is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        launches = sum(e.count for e in events)
+        if launches and launches % n == 0:
+            break
+        log(f"[traced_ms] {launches} kernels in a trace of {n} calls; "
+            f"tracing again ({attempt + 1} of {tries})")
+    else:
+        raise AssertionError(f"no complete trace of {n} calls in {tries}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / n
 
 
 def bitwise_equal(a, b) -> bool:
@@ -227,7 +298,26 @@ def max_abs(a, b) -> float:
 
 # ------------------------------------------------------------ kernel phase --
 
-def kernel_phase(dev):
+# defended_encode's sizes: D7's payload, the vfl-zoo payload (4 x 2048 x
+# 256, kept on chip by the int8 kernel) and 2^24 (past what it keeps: the
+# second sweep)
+ENCODE_SIZES = (2048, 1 << 21, 1 << 24)
+# (dp mechanism, noise multiplier): none, gaussian, laplace, clip only
+DEFENSES = ((None, None), ("gaussian", 1.3), ("laplace", 1.3),
+            ("gaussian", 0.0))
+
+
+def plain_encode_keyed(c, dk, rk, dp, codec):
+    """defended_encode's plain chain on the eager bits of the same keys."""
+    from repro_torch.kernels import fused_round
+    from repro_torch.utils import prng
+    dpb = None if dk is None else prng.bits_plain(dk, c.shape, c.device)
+    rnb = None if rk is None else prng.bits_plain(rk, c.shape, c.device)
+    return fused_round._encode_math(fused_round._defend_math(c, dpb, dp),
+                                    rnb, codec)
+
+
+def kernel_phase(dev, int_rate):
     import torch
     from repro_torch.configs import DPConfig
     from repro_torch.kernels import fused_round, zo_update
@@ -237,54 +327,77 @@ def kernel_phase(dev):
     worst = {"defended_encode": 0.0, "zo_update": 0.0}
     timed = {}
 
-    def plain_encode(c, dpb, rnb, dp, codec):
-        return fused_round._encode_math(fused_round._defend_math(c, dpb, dp),
-                                        rnb, codec)
-
-    for n in (2048, 1 << 24):
+    for n in ENCODE_SIZES:
         c = 2.0 * torch.randn(n, device=dev, generator=gen)
+        plain_reps = 20 if n <= 2048 else 5
         for codec in ("f32", "bf16", "int8"):
-            for mech in (None, "gaussian", "laplace"):
+            for mech, sigma in DEFENSES:
                 dp = None if mech is None else DPConfig(
-                    noise_multiplier=1.3, clip=1.0, mechanism=mech)
-                dpb = None if dp is None else prng.bits((7, n), (n,), dev)
-                rnb = prng.bits((9, n), (n,), dev) if codec == "int8" \
-                    else None
-                got = fused_round.defended_encode(c, dpb, rnb, dp, codec)
-                want = plain_encode(c, dpb, rnb, dp, codec)
+                    noise_multiplier=sigma, clip=1.0, mechanism=mech)
+                noise = dp is not None and sigma != 0.0
+                dk = (7, n) if noise else None
+                rk = (9, n) if codec == "int8" else None
+
+                def kernel():
+                    return fused_round.defended_encode_keyed(c, dk, rk, dp,
+                                                             codec)
+                got = kernel()
+                want = plain_encode_keyed(c, dk, rk, dp, codec)
                 torch.cuda.synchronize()
+                where = (f"n={n} codec={codec} dp={mech} "
+                         f"sigma={sigma}")
                 if not bitwise_equal(got, want):
                     raise AssertionError(
-                        f"defended_encode != plain at n={n} codec={codec} "
-                        f"dp={mech}: max |diff| {max_abs(got, want)}")
+                        f"defended_encode from keys != plain at {where}: "
+                        f"max |diff| {max_abs(got, want)}")
                 worst["defended_encode"] = max(worst["defended_encode"],
                                                max_abs(got, want))
-                kern = time_ms(lambda: fused_round.defended_encode(
-                    c, dpb, rnb, dp, codec))
-                plain = time_ms(lambda: plain_encode(c, dpb, rnb, dp, codec))
-                nbytes = 4 * n + (4 * n if dpb is not None else 0) \
-                    + (4 * n if rnb is not None else 0) \
-                    + {"f32": 4 * n, "bf16": 2 * n, "int8": n + 4}[codec]
-                ops = n * ((OPS_NOISE[mech] if mech else 0)
-                           + (2 if mech else 0)
-                           + (6 if codec == "int8" else 0))
-                bound = max(nbytes / HBM_BYTES_PER_S,
-                            ops / F32_FLOPS_PER_S) * 1e3
+                # the same kernel reading the two streams from device memory
+                dpb = None if dk is None else prng.bits(dk, c.shape, dev)
+                rnb = None if rk is None else prng.bits(rk, c.shape, dev)
+
+                def from_bits():
+                    return fused_round.defended_encode(c, dpb, rnb, dp, codec)
+                if not bitwise_equal(from_bits(), got):
+                    raise AssertionError(
+                        f"defended_encode from bits != from keys at {where}")
+                streams = int(dk is not None) + int(rk is not None)
+                nbytes = 4 * n + {"f32": 4 * n, "bf16": 2 * n,
+                                  "int8": n + 4}[codec]
+                f32_ops = n * ((OPS_NOISE[mech] if noise else 0)
+                               + (2 if dp else 0)
+                               + (6 if codec == "int8" else 0))
+                bound, by, parts = ops_bound(
+                    nbytes, INT32_OPS_PER_WORD * streams * n, f32_ops,
+                    int_rate)
                 row = {"kernel": "defended_encode", "n": n, "codec": codec,
-                       "dp": mech, "bitwise": True, "kernel_ms": kern,
-                       "plain_ms": plain, "bound_ms": bound,
-                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                    >= ops / F32_FLOPS_PER_S
-                                    else "operations")}
+                       "dp": mech, "sigma": sigma, "from": "keys",
+                       "bitwise": True, "kernel_ms": time_ms(kernel),
+                       "kernel_traced_ms": traced_ms(kernel),
+                       "plain_ms": time_ms(
+                           lambda: plain_encode_keyed(c, dk, rk, dp, codec),
+                           reps=plain_reps),
+                       "bound_ms": bound, "bound_by": by, **parts}
+                if (n, codec, mech, noise) == (1 << 24, "int8", "gaussian",
+                                               True):
+                    # the bits-operand launch is timed at one case only
+                    # (benchmarks/torch_encode_variants.py times it at
+                    # every size)
+                    row["bits_from_memory_ms"] = time_ms(from_bits)
+                    row["bits_from_memory_traced_ms"] = traced_ms(from_bits)
                 log(json.dumps(row))
-                if n == 2048 and codec == "int8" and mech == "gaussian":
+                if n == 2048 and codec == "int8" and mech == "gaussian" \
+                        and noise:
                     timed["defended_encode"] = row
-        # the undefended int8 path without a rounding key (round-to-even)
-        if n == 2048:
-            got = fused_round.defended_encode(c, None, None, None, "int8")
-            want = plain_encode(c, None, None, None, "int8")
-            if not bitwise_equal(got, want):
-                raise AssertionError("defended_encode int8 without key")
+            if codec == "int8":
+                # the undefended int8 path without a rounding key
+                # (round-to-even)
+                got = fused_round.defended_encode_keyed(c, None, None, None,
+                                                        "int8")
+                if not bitwise_equal(got, plain_encode_keyed(
+                        c, None, None, None, "int8")):
+                    raise AssertionError(
+                        f"defended_encode int8 without key at n={n}")
 
     for n in (12544, 128, 1, 80, 10, 1 << 24):
         w = torch.randn(n, device=dev, generator=gen)
@@ -306,6 +419,66 @@ def kernel_phase(dev):
         log(json.dumps(row))
         if n == 12544:
             timed["zo_update"] = row
+    return timed, worst
+
+
+# the draw kernel's sizes: every size the driven paths draw, and 2^24.
+# D7 (fused, unfused, async): the party's b2 (1), the server's b (10) and
+# w (8 x 10), the party's b1 and w2 (128), the up-link's c (2048) and
+# the party's w1 (98 x 128). vfl-zoo on qwen1.5-0.5b with 4 parties: the
+# final norm (1024), the stacked norms and biases (24 x 1024), a party's
+# w1 and w2 (256 x 128), one layer's 1024 x 1024 and 1024 x 2816 at
+# init, their stacks (24 x 1024 x 1024, 24 x 1024 x 2816), a party's
+# embedding slice (151936 x 256) and the server's embedding (151936 x
+# 1024). The small defended FCN held against the CPU adds 16, 20 and
+# 256. Then ranges across counter 2^32: (n, offset)
+DRAW_SIZES = (1, 10, 16, 20, 80, 128, 256, 1024, 2048, 12544, 24576, 32768,
+              1 << 20, 2883584, 1 << 24, 25165824, 38895616, 69206016,
+              155582464)
+DRAW_RANGES = ((5003, (1 << 32) - 1000), (1 << 24, (1 << 32) - (1 << 23)))
+
+
+def draw_phase(dev, int_rate):
+    """The draw kernel against the eager chain (bitwise), with its times
+    and bound: 4 bytes written and 41 INT32-pipe operations a word, and the
+    normal chain's f32 operations."""
+    import torch
+    from repro_torch.kernels import prng_draw
+    from repro_torch.utils import prng
+
+    timed, worst = None, 0.0
+    cases = list(DRAW_RANGES) + [(n, 0) for n in DRAW_SIZES]
+    for n, offset in cases:
+        k = (0x5EED, n)
+        for mode in prng_draw.MODES:
+            def kernel():
+                return prng_draw.draw(k, (n,), mode, dev, offset)
+
+            def plain():
+                return prng.draw_plain(k, (n,), mode, dev, offset)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if not bitwise_equal(got, want):
+                raise AssertionError(
+                    f"prng_draw != the eager chain: {mode} n={n} "
+                    f"offset={offset}: {int((got != want).sum())} differ")
+            worst = max(worst, max_abs(got, want))
+            del got, want
+            f32_ops = n * {"bits": 0, "normal": OPS_NOISE["gaussian"],
+                           "rademacher": 1}[mode]
+            bound, by, parts = ops_bound(4 * n, INT32_OPS_PER_WORD * n,
+                                         f32_ops, int_rate)
+            big = n >= 1 << 24
+            row = {"kernel": "prng_draw", "n": n, "offset": offset,
+                   "mode": mode, "bitwise": True, "kernel_ms": time_ms(kernel),
+                   "kernel_traced_ms": traced_ms(kernel),
+                   "plain_ms": time_ms(plain, reps=3 if big else 20,
+                                       warmup=1 if big else 3),
+                   "bound_ms": bound, "bound_by": by, **parts}
+            log(json.dumps(row))
+            if (n, offset, mode) == (12544, 0, "bits"):
+                timed = row
+            torch.cuda.empty_cache()
     return timed, worst
 
 
@@ -606,14 +779,10 @@ def main_path_phase(dev):
     launches = read_launches()
     log(f"[main] fused: {len(res_f.history)} updates, {ms_f:.2f} ms per "
         f"party round, launches {launches}")
-    for name in D7_KERNELS:
-        if launches[name] == 0:
-            raise AssertionError(f"the main path never launched {name}")
-    if launches["flash_attention"] != 0:
-        raise AssertionError("the FCN round launched flash_attention")
-    if launches["dual_matmul"] != rounds * q:
-        raise AssertionError(f"{launches['dual_matmul']} dual_matmul "
-                             f"launches in {rounds * q} party rounds")
+    want = {name: per * rounds * q for name, per in D7_FUSED_ROUND.items()}
+    want["prng_draw"] += fcn_init_draws(q)
+    if launches != want:
+        raise AssertionError(f"fused D7 launches {launches}, want {want}")
 
     losses = [h for _, h in res_f.history]
     if len(losses) != rounds * q or not all(math.isfinite(h) for h in losses):
@@ -632,10 +801,11 @@ def main_path_phase(dev):
     zero_launches()
     tr_u, res_u, ms_u = run(fused=False)
     unfused = read_launches()
-    if unfused != {"defended_encode": 0, "zo_update": 0,
-                   "dual_matmul": rounds * q, "flash_attention": 0}:
-        raise AssertionError(f"unfused run launches {unfused}: want only "
-                             "one dual_matmul per party round")
+    want = {name: per * rounds * q for name, per in D7_UNFUSED_ROUND.items()}
+    want["prng_draw"] += fcn_init_draws(q)
+    if unfused != want:
+        raise AssertionError(f"unfused run launches {unfused}: want {want}, "
+                             "one dual_matmul and 10 draws per party round")
     if [h for _, h in res_u.history] != losses:
         raise AssertionError("fused losses != unfused losses")
     for m in range(q):
@@ -645,7 +815,8 @@ def main_path_phase(dev):
     for k in tr_f.server.w0:
         if not bitwise_equal(tr_f.server.w0[k], tr_u.server.w0[k]):
             raise AssertionError(f"server {k}: fused != unfused")
-    log(f"[main] unfused (plain torch on the card): {ms_u:.2f} ms per "
+    log(f"[main] unfused (eager torch arithmetic on the card, its "
+        f"directions and bits from the draw kernel): {ms_u:.2f} ms per "
         "party round; losses and final params bitwise equal to fused")
 
     # the card against the CPU (the CPU port is held to the jax
@@ -696,22 +867,39 @@ def main_path_phase(dev):
         raise AssertionError("undefended training loss did not fall")
     return launches, {"fused_ms_per_round": ms_f,
                       "unfused_ms_per_round": ms_u,
+                      "fused_launches": launches, "unfused_launches": unfused,
                       "train_ms_per_round": ms_t,
                       "train_loss_first50": first,
                       "train_loss_last50": last}
 
 
-# the kernels the D7 FCN round runs; flash_attention runs in the vfl-zoo
-# phase
-D7_KERNELS = ("defended_encode", "zo_update", "dual_matmul")
+# launches per D7 FCN party round. Fused: c and c_hat encoded from their
+# keys; a draw and a zo_update for each perturbed leaf (the party's w1, b1,
+# w2, b2 and the server's w, b); the two tower evaluations in one
+# dual_matmul. Unfused: the dual_matmul, the 6 directions, and for c and
+# c_hat the DP noise bits and the int8 rounding bits.
+D7_FUSED_ROUND = {"defended_encode": 2, "zo_update": 6, "dual_matmul": 1,
+                  "flash_attention": 0, "prng_draw": 6}
+D7_UNFUSED_ROUND = {"defended_encode": 0, "zo_update": 0, "dual_matmul": 1,
+                    "flash_attention": 0, "prng_draw": 10}
+# directions per update of the async experiment (uniform: the gaussian
+# draw, then its norm): the party's 4 leaves and the server's 2
+ASYNC_DRAWS_PER_UPDATE = 6
+
+
+def fcn_init_draws(q):
+    """Draws of a paper FCN trainer's initial weights: each party's w1 and
+    w2, and the server's w."""
+    return 2 * q + 1
 
 
 def _counters():
-    from repro_torch.kernels import fused_round, ops, zo_update
+    from repro_torch.kernels import fused_round, ops, prng_draw, zo_update
     return {"defended_encode": fused_round.defended_encode,
             "zo_update": zo_update.zo_update,
             "dual_matmul": ops.dual_matmul,
-            "flash_attention": ops.flash_attention}
+            "flash_attention": ops.flash_attention,
+            "prng_draw": prng_draw.draw}
 
 
 def zero_launches():
@@ -772,9 +960,12 @@ def async_phase(dev):
             raise AssertionError(f"run_{name}: bytes {res.bytes_up}, "
                                  f"{res.bytes_down}")
         comms.validate_channel(tr.channel, updates, batch)
-        if launches != {"defended_encode": 0, "zo_update": 0,
-                        "dual_matmul": updates, "flash_attention": 0}:
-            raise AssertionError(f"run_{name}: launches {launches}")
+        want = {"defended_encode": 0, "zo_update": 0, "dual_matmul": updates,
+                "flash_attention": 0,
+                "prng_draw": ASYNC_DRAWS_PER_UPDATE * updates}
+        if launches != want:
+            raise AssertionError(f"run_{name}: launches {launches}, want "
+                                 f"{want}")
         stats[name] = {"wall_s": wall, "updates_per_s": res.updates / wall,
                        "loss_first50": first, "loss_last50": last,
                        "launches": launches}
@@ -793,9 +984,18 @@ ZOO_ARGS = ["--arch", "qwen1.5-0.5b", "--mode", "vfl-zoo", "--parties", "4",
             "int8"]
 # what one step launches: h, h_bar and h_hat are three forwards of the
 # 24-layer backbone, one flash_attention per layer each; the up-link
-# encodes q = 4 c's and one c_hat, one defended_encode each
+# encodes q = 4 c's and one c_hat, one defended_encode each (bits from the
+# keys); one gaussian direction (a draw) per perturbed leaf, 17
 ZOO_FLASH_PER_STEP = 3 * 24
 ZOO_ENCODE_PER_STEP = 4 + 1
+ZOO_DRAWS_PER_STEP = 17
+
+
+def zoo_init_draws(layers, parties):
+    """Draws of the vfl-zoo initial weights: the server's embedding, 7
+    matrices a layer (wq, wk, wv, wo, w_gate, w_up, w_down), and each
+    party's embedding slice, w1 and w2."""
+    return 1 + 7 * layers + 3 * parties
 # the parts of a step timed on their own (the rest is the party update,
 # the server update's arithmetic and the ring buffer)
 SPLIT = (("directions", "repro_torch.core.zoo", "direction_tree"),
@@ -828,7 +1028,9 @@ def zoo_phase(dev):
         f"{peak_gb:.2f} GB, launches {launches}")
     want = {"flash_attention": ZOO_FLASH_PER_STEP * ZOO_STEPS,
             "defended_encode": ZOO_ENCODE_PER_STEP * ZOO_STEPS,
-            "dual_matmul": 0, "zo_update": 0}
+            "dual_matmul": 0, "zo_update": 0,
+            "prng_draw": ZOO_DRAWS_PER_STEP * ZOO_STEPS
+            + zoo_init_draws(cfg.num_layers, 4)}
     if launches != want:
         raise AssertionError(f"vfl-zoo launches {launches}, want {want}")
     if len(h) != ZOO_STEPS or not all(math.isfinite(x) for x in h):
@@ -951,6 +1153,11 @@ def d7_data(q):
 
 
 PROFILE_SPANS = ("prng.bits", "prng.sample_direction")
+PORT_KERNEL_FUNCTIONS = {"defended_encode": ("cast_kernel", "int8_kernel"),
+                         "zo_update": ("zo_update",),
+                         "dual_matmul": ("dual_matmul",),
+                         "flash_attention": ("flash_attention",),
+                         "prng_draw": ("draw_kernel",)}
 
 
 def _fcn_workload(cell):
@@ -1059,6 +1266,11 @@ def profile_phase(dev, cell):
         return n, us
 
     flash = [e for e in dev_events if "flash_attention" in e.key]
+    # the port's kernels in the trace, by the names of their functions (the
+    # profiler does not tie a launch made through ctypes to the span around
+    # it, so the draws are counted here)
+    mine = {name: [e for e in dev_events if any(f in e.key for f in fns)]
+            for name, fns in PORT_KERNEL_FUNCTIONS.items()}
     out = {"cell": cell, f"{unit}s": units, "wall_ms": wall_ms,
            f"ms_per_{unit}": wall_ms / units,
            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
@@ -1067,6 +1279,13 @@ def profile_phase(dev, cell):
                "device_ms": sum(e.self_device_time_total
                                 for e in flash) / 1e3,
                "launches": sum(e.count for e in flash)},
+           "port_kernels": {
+               name: {"launches": sum(e.count for e in evs),
+                      f"launches_per_{unit}":
+                          sum(e.count for e in evs) / units,
+                      "device_ms": sum(e.self_device_time_total
+                                       for e in evs) / 1e3}
+               for name, evs in mine.items()},
            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3,
                               e.count] for e in top]}
     for name in PROFILE_SPANS:
@@ -1100,8 +1319,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
+    int_rate = int32_ops_per_s(
+        torch.cuda.get_device_properties(0).multi_processor_count)
     log(f"[device] {torch.cuda.get_device_name(0)} | {card} | torch "
-        f"{torch.__version__} cuda {torch.version.cuda}")
+        f"{torch.__version__} cuda {torch.version.cuda} | INT32 "
+        f"{int_rate / 1e12:.3f} Tops/s")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1113,12 +1335,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
     tensor_core_route()
+    draw_sass()
 
     if "--profile" in sys.argv[1:]:
         for cell in ("d7", "async", "zoo"):
             profile_phase(dev, cell)
         return 0
-    timed, worst = kernel_phase(dev)
+    timed, worst = kernel_phase(dev, int_rate)
+    timed["prng_draw"], worst["prng_draw"] = draw_phase(dev, int_rate)
     timed["dual_matmul"], worst["dual_matmul"] = dual_matmul_phase(dev)
     timed["flash_attention"], worst["flash_attention"] = flash_phase(dev)
     launches, main_stats = main_path_phase(dev)
@@ -1137,11 +1361,17 @@ def main() -> int:
                         "src/repro/kernels/dual_matmul.py:24"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:25"),
+        # not a Pallas kernel: XLA's jax.random.bits / jax.random.normal,
+        # which the reference's sample_direction draws through
+        "prng_draw": ("src/repro_torch/kernels/csrc/prng_draw.cu",
+                      "src/repro/utils/prng.py:23"),
     }
-    # launches: the D7 main path's fused run for the first three, the
-    # vfl-zoo run for flash_attention; library_ms: no single torch call
-    # takes the bit streams of the first two, two torch.matmul calls
-    # compute the third, scaled_dot_product_attention the fourth
+    # launches: the D7 main path's fused run for defended_encode,
+    # zo_update, dual_matmul and prng_draw, the vfl-zoo run for
+    # flash_attention; library_ms: no single torch call takes the keys or
+    # the bit streams of defended_encode, zo_update and prng_draw (torch's
+    # own generator draws other numbers), two torch.matmul calls compute
+    # dual_matmul, scaled_dot_product_attention flash_attention
     kernels = [{"name": name, "route": "cuda", "source": src_path,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": worst[name], "ms": timed[name]["kernel_ms"],

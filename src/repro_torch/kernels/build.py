@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on its own into a shared
+Each ``csrc/<name>.cu``, with the local headers it includes (such as
+``csrc/prng.cuh``), is compiled by ``nvcc`` on its own into a shared
 library with a plain C interface, ``build/kernels/lib<name>-<hash>.so``
 at the repository root, and loaded with ``ctypes``. Nothing is built when a module is
 imported: the first launch builds what it needs, and ``build_all``
@@ -10,9 +11,10 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so the compiler
 never contracts a multiply and an add the kernel did not write as an FMA
 (the kernels also spell every rounding with ``__f*_rn`` intrinsics).
 ``CUDA_HOME`` (default ``/usr/local/cuda``) locates ``nvcc`` when it is
-not on PATH. The hash in the library's name covers the source, the flags
-and ``nvcc --version``, so an edited kernel, a changed flag or another
-toolchain never loads a library built for something else.
+not on PATH. The hash in the library's name covers the source, every
+local header it includes (``#include "..."``, followed through headers),
+the flags and ``nvcc --version``, so an edited kernel or header, a changed
+flag or another toolchain never loads a library built for something else.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("defended_encode", "zo_update", "dual_matmul",
-           "flash_attention")
+           "flash_attention", "prng_draw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -58,8 +61,27 @@ def _toolchain() -> bytes:
     return "\0".join(NVCC_FLAGS).encode() + b"\0" + version
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the local headers it includes, directly or
+    through another header, in the order first met."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(_toolchain())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -107,6 +129,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _P = ctypes.c_void_p
+_I, _U, _F = ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention": {
         # q, k, v, out, B, S, H, KV, hd, scale, causal, stream
@@ -128,16 +152,27 @@ _SIGNATURES = {
         "zo_update_f32": (_P, _P, ctypes.c_float, _P, ctypes.c_longlong, _P),
     },
     "defended_encode": {
-        # c, dp_bits, has_dp, clip, noise_scale, mechanism, out_bf16,
-        # out, n, stream
-        "defended_encode_cast": (_P, _P, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 _P, ctypes.c_longlong, _P),
-        # c, dp_bits, rnd_bits, has_dp, clip, noise_scale, mechanism,
-        # amax_word, q, scale_out, n, stream
-        "defended_encode_int8": (_P, _P, _P, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_int, _P, _P, _P,
-                                 ctypes.c_longlong, _P),
+        # c, dp_bits, has_dp, noise, clip, noise_scale, out_bf16, out, n,
+        # stream
+        "defended_encode_cast": (_P, _P, _I, _I, _F, _F, _I, _P, _LL, _P),
+        # c, dp_k0, dp_k1, has_dp, noise, clip, noise_scale, out_bf16, out,
+        # n, stream
+        "defended_encode_cast_keyed": (_P, _U, _U, _I, _I, _F, _F, _I, _P,
+                                       _LL, _P),
+        # cooperative: c, dp_bits, rnd_bits, has_dp, noise, clip,
+        # noise_scale, slots, max_slots, q, scale_out, n, stream
+        "defended_encode_int8": (_P, _P, _P, _I, _I, _F, _F, _P, _I, _P, _P,
+                                 _LL, _P),
+        # cooperative: c, dp_k0, dp_k1, rnd_k0, rnd_k1, has_rnd, has_dp,
+        # noise, clip, noise_scale, slots, max_slots, q, scale_out, n, stream
+        "defended_encode_int8_keyed": (_P, _U, _U, _U, _U, _I, _I, _I, _F,
+                                       _F, _P, _I, _P, _P, _LL, _P),
+        # the slots an int8 launch needs at most
+        "defended_encode_int8_slots": (),
+    },
+    "prng_draw": {
+        # k0, k1, offset, mode, out, n, stream
+        "prng_draw": (_U, _U, ctypes.c_ulonglong, _I, _P, _LL, _P),
     },
 }
 

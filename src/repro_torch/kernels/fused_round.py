@@ -3,19 +3,22 @@ as single passes, bit-identical to the unfused seam.
 
 One defended up-link (core/exchange.py ``encode_up``) is a chain of
 separately materialized steps: clip, a mechanism noise draw, the add,
-then the codec's scale/round/cast. ``defended_encode`` runs the whole
-chain in one CUDA kernel (two launches for int8: a block absmax, then
-the quantize pass), reading the payload and its raw PRNG bits once and
-writing the encoded result once; it takes the place of the reference's
-Pallas kernel (``impl="pallas"``). The perturb and apply side runs the
-zo_update kernel (kernels/zo_update.py).
+then the codec's scale/round/cast. ``defended_encode_keyed`` runs the
+whole chain in one CUDA kernel launch (a cooperative one for int8),
+drawing the noise and rounding bits in registers from their keys, reading
+the payload once and writing the encoded result once; it takes the place
+of the reference's Pallas kernel (``impl="pallas"``) and, keyed, of the
+one dispatch of its ``encode_up_fused``. ``defended_encode`` is the same
+kernel reading the bits from int32 tensors, the reference's signature.
+The perturb and apply side runs the zo_update kernel
+(kernels/zo_update.py) on bits from the draw kernel.
 
 Bit parity: the unfused oracle draws noise and rounding from
 ``utils.prng.bits`` through the bits -> sample chains below, the same
-uint32 streams the kernels take as operands, so a fused exchange is
+uint32 streams the kernels make from the keys, so a fused exchange is
 bitwise equal to the unfused one. On the CPU every wrapper runs the
-plain torch version (``_defend_math`` / ``_encode_math``); on a CUDA
-tensor it launches the kernel or raises.
+plain torch version (``_defend_math`` / ``_encode_math`` on the eager
+bits); on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from repro_torch.utils.prng import (laplace_from_bits,  # noqa: F401
                                     uniform_from_bits)
 
 _NOISE = {"gaussian": normal_from_bits, "laplace": laplace_from_bits}
-_MECHANISM_ID = {"gaussian": 0, "laplace": 1}
+# the kernel's noise codes; 0 is no noise
+_NOISE_ID = {"gaussian": 1, "laplace": 2}
 
 
 def _noise_scale32(dp) -> float:
@@ -83,32 +87,34 @@ def _check_bits(c, b, name):
                          f"{b.dtype} {tuple(b.shape)} on {b.device}")
 
 
-def defended_encode(c, dp_bits, rnd_bits, dp, codec: str):
-    """clip -> noise -> codec-encode one payload from raw PRNG bits.
-
-    ``dp_bits``/``rnd_bits`` are int32 bit patterns shaped like ``c`` (or
-    None when the stage is off); ``dp`` is a resolved DPConfig or None.
-    Returns exactly what ``codec.encode(defend_payload(c, ...), ...)``
-    returns: f32, bf16, or (int8 values, f32 scale)."""
-    if c.device.type == "cpu":
-        return _encode_math(_defend_math(c, dp_bits, dp), rnd_bits, codec)
+def _check_payload(c, codec):
     if c.device.type != "cuda":
         raise ValueError(f"defended_encode: no kernel for {c.device}")
     if c.dtype != torch.float32 or not c.is_contiguous() or c.numel() == 0:
         raise ValueError("defended_encode takes a non-empty contiguous f32 "
                          f"payload, got {c.dtype} {tuple(c.shape)}")
-    _check_bits(c, dp_bits, "dp_bits")
-    _check_bits(c, rnd_bits, "rnd_bits")
     if codec not in ("f32", "bf16", "int8"):
         raise ValueError(f"no fused encode for codec {codec!r}")
+
+
+_SLOTS: dict = {}       # device index -> slots the int8 launch needs
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(c, dp, codec, noise: bool, keys=None, bits=None):
+    """One defended_encode launch on CUDA payload ``c``. ``keys`` =
+    (dp_key, rnd_key) draws the streams in the kernel; ``bits`` =
+    (dp_bits, rnd_bits) reads them. A None key or tensor is an absent
+    stream: no noise (dp off, or clip only), or int8 round-to-even."""
     has_dp = dp is not None
-    clip = float(dp.clip) if has_dp else 0.0
-    noise = _noise_scale32(dp) if dp_bits is not None else 0.0
-    mech = _MECHANISM_ID[dp.mechanism] if has_dp else 0
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    defense = (int(has_dp), _NOISE_ID[dp.mechanism] if noise else 0,
+               float(dp.clip) if has_dp else 0.0,
+               _noise_scale32(dp) if noise else 0.0)
+    dp_src = tuple(keys[0] or (0, 0)) if keys is not None \
+        else (_ptr(bits[0]),)
     lib = build.load("defended_encode")
     n = c.numel()
     with torch.cuda.device(c.device):
@@ -116,18 +122,27 @@ def defended_encode(c, dp_bits, rnd_bits, dp, codec: str):
         if codec in ("f32", "bf16"):
             out = torch.empty_like(
                 c, dtype=torch.float32 if codec == "f32" else torch.bfloat16)
-            err = lib.defended_encode_cast(
-                c.data_ptr(), ptr(dp_bits), int(has_dp), clip, noise, mech,
-                int(codec == "bf16"), out.data_ptr(), n, stream)
+            fn = (lib.defended_encode_cast_keyed if keys is not None
+                  else lib.defended_encode_cast)
+            err = fn(c.data_ptr(), *dp_src, *defense, int(codec == "bf16"),
+                     out.data_ptr(), n, stream)
             result = out
         else:
-            amax_word = torch.empty(1, dtype=torch.int32, device=c.device)
+            if c.device.index not in _SLOTS:
+                _SLOTS[c.device.index] = lib.defended_encode_int8_slots()
+            slots = torch.empty(max(_SLOTS[c.device.index], 1),
+                                dtype=torch.int32, device=c.device)
             q = torch.empty_like(c, dtype=torch.int8)
             scale = torch.empty((), dtype=torch.float32, device=c.device)
-            err = lib.defended_encode_int8(
-                c.data_ptr(), ptr(dp_bits), ptr(rnd_bits), int(has_dp), clip,
-                noise, mech, amax_word.data_ptr(), q.data_ptr(),
-                scale.data_ptr(), n, stream)
+            if keys is not None:
+                fn = lib.defended_encode_int8_keyed
+                src = (*dp_src, *(keys[1] or (0, 0)),
+                       int(keys[1] is not None))
+            else:
+                fn = lib.defended_encode_int8
+                src = (*dp_src, _ptr(bits[1]))
+            err = fn(c.data_ptr(), *src, *defense, slots.data_ptr(),
+                     slots.numel(), q.data_ptr(), scale.data_ptr(), n, stream)
             result = (q, scale)
     if err != 0:
         raise RuntimeError(
@@ -136,30 +151,64 @@ def defended_encode(c, dp_bits, rnd_bits, dp, codec: str):
     return result
 
 
+def defended_encode(c, dp_bits, rnd_bits, dp, codec: str):
+    """clip -> noise -> codec-encode one payload from raw PRNG bits.
+
+    ``dp_bits``/``rnd_bits`` are int32 bit patterns shaped like ``c`` (or
+    None when the stage is off); ``dp`` is a resolved DPConfig or None.
+    Returns exactly what ``codec.encode(defend_payload(c, ...), ...)``
+    returns: f32, bf16, or (int8 values, f32 scale). The launch counter
+    ``defended_encode.launches`` counts this entry's launches and the keyed
+    one's: both launch the one kernel."""
+    if c.device.type == "cpu":
+        return _encode_math(_defend_math(c, dp_bits, dp), rnd_bits, codec)
+    _check_payload(c, codec)
+    _check_bits(c, dp_bits, "dp_bits")
+    _check_bits(c, rnd_bits, "rnd_bits")
+    return _launch(c, dp, codec, noise=dp is not None and dp_bits is not None,
+                   bits=(dp_bits, rnd_bits if codec == "int8" else None))
+
+
+def defended_encode_keyed(c, dp_key, rnd_key, dp, codec: str):
+    """The same encode with each stream drawn from its key: ``dp_key`` the
+    noise key (None: no noise, dp off or clip only), ``rnd_key`` the int8
+    rounding key (None: round half to even). Element i of a stream is
+    ``prng.bits(key, c.shape)`` flattened at i. One launch on a CUDA
+    tensor, no bits in device memory; the plain version on the CPU."""
+    if dp_key is not None and dp is None:
+        raise ValueError("defended_encode: a noise key without a DPConfig")
+    rnd_key = rnd_key if codec == "int8" else None
+    if c.device.type == "cpu":
+        dp_bits, rnd_bits = (None if k is None else
+                             prng.bits_plain(k, c.shape, c.device)
+                             for k in (dp_key, rnd_key))
+        return _encode_math(_defend_math(c, dp_bits, dp), rnd_bits, codec)
+    _check_payload(c, codec)
+    return _launch(c, dp, codec, noise=dp_key is not None,
+                   keys=(dp_key, rnd_key))
+
+
 defended_encode.launches = 0
 
 
 # --------------------------------------- the exchange-facing fast paths ----
 
-def _release_bits(ex, c, key):
-    """The raw uint32 streams one release consumes, keyed exactly like
-    the unfused seam: dp noise off ``ex._dp_key`` (which raises on a
-    missing round key, same as the oracle), codec rounding off the round
-    key itself."""
-    dp_bits = None
+def _release_keys(ex, key):
+    """The keys of the streams one release consumes, as the unfused seam
+    keys them: dp noise off ``ex._dp_key`` (which raises on a missing round
+    key, same as the oracle; None for clip only), codec rounding off the
+    round key itself."""
+    dp_key = None
     if ex.dp is not None:
         dp_key = ex._dp_key(key)        # raises on key=None, like the oracle
-        if float(ex.dp.noise_multiplier) != 0.0:
-            dp_bits = prng.bits(dp_key, c.shape, c.device)
-    rnd_bits = None
-    if ex.codec.name == "int8" and key is not None:
-        rnd_bits = prng.bits(key, c.shape, c.device)
-    return dp_bits, rnd_bits
+        if float(ex.dp.noise_multiplier) == 0.0:
+            dp_key = None
+    return dp_key, key if ex.codec.name == "int8" else None
 
 
 def encode_up_fused(ex, c, key):
-    dp_bits, rnd_bits = _release_bits(ex, c, key)
-    return defended_encode(c, dp_bits, rnd_bits, ex.dp, ex.codec.name)
+    return defended_encode_keyed(c, *_release_keys(ex, key), ex.dp,
+                                 ex.codec.name)
 
 
 def roundtrip_up_fused(ex, c, key):

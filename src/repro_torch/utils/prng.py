@@ -16,10 +16,14 @@ The semantics are those of ``jax_threefry_partitionable=True`` (jax
   bits(key, shape) x0 ^ x1 of threefry2x32(key, hi32(i), lo32(i)) over the
                    row-major flat index i
 
-Tensors hold uint32 values in int64 (masked to 32 bits) while they are
-being mixed, so no arithmetic relies on ``torch.uint32`` support.
-``bits`` returns the stream as int32 tensors: the same 32-bit patterns
-the kernels read as ``uint32``.
+On a CUDA device ``bits``, ``normal`` and ``sample_direction`` are one
+launch of the draw kernel each (kernels/prng_draw.py, through ``draw``),
+bitwise equal to the eager chain below. On the CPU the eager chain runs
+(``draw_plain``, ``bits_plain``, ``normal_plain``): tensors hold uint32
+values in int64 (masked to 32 bits) while they are being mixed, so no
+arithmetic relies on ``torch.uint32`` support. ``bits`` returns the stream
+as int32 tensors: the same 32-bit patterns the kernels read as
+``uint32``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels import prng_draw
 from repro_torch.utils import xla_math
 
 Key = tuple
@@ -78,13 +83,21 @@ def fold_name(k: Key, name: str) -> Key:
     return fold_in(k, h)
 
 
-def bits(k: Key, shape, device) -> torch.Tensor:
-    """== jax.random.bits(k, shape, uint32), as int32 bit patterns."""
+def bits_plain(k: Key, shape, device, offset: int = 0) -> torch.Tensor:
+    """The eager threefry chain: element i is the stream's word at counter
+    offset + i (below 2^63), threefry2x32 of (hi32, lo32) of the counter;
+    jax.random.bits(k, shape, uint32) at offset 0."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     x0, x1 = _threefry2x32(k[0], k[1], i >> 32, i & _M32)
     return (x0 ^ x1).to(torch.int32).reshape(shape)
+
+
+def bits(k: Key, shape, device) -> torch.Tensor:
+    """== jax.random.bits(k, shape, uint32), as int32 bit patterns: one
+    draw-kernel launch on a CUDA device, the eager chain on the CPU."""
+    return draw(k, shape, "bits", device)
 
 
 # -------------------------------------------- bits -> distribution chains --
@@ -132,9 +145,37 @@ def rademacher_from_bits(b: torch.Tensor) -> torch.Tensor:
     return torch.where((b & 1) == 1, one, -one)
 
 
+def normal_plain(k: Key, shape, device, offset: int = 0) -> torch.Tensor:
+    """The eager normal chain on ``bits_plain``."""
+    return normal_from_bits(bits_plain(k, shape, device, offset))
+
+
 def normal(k: Key, shape, device) -> torch.Tensor:
-    """== jax.random.normal(k, shape, float32)."""
-    return normal_from_bits(bits(k, shape, device))
+    """== jax.random.normal(k, shape, float32): one draw-kernel launch on a
+    CUDA device, the eager chain on the CPU."""
+    return draw(k, shape, "normal", device)
+
+
+def draw_plain(k: Key, shape, mode: str, device, offset: int = 0):
+    """The draw kernel's plain version, the eager chain: the bits, the
+    normal chain on them, or the rademacher sign of their low bit."""
+    b = bits_plain(k, shape, device, offset)
+    if mode == "bits":
+        return b
+    if mode == "normal":
+        return normal_from_bits(b)
+    if mode == "rademacher":
+        return rademacher_from_bits(b)
+    raise ValueError(f"prng.draw: unknown mode {mode!r}")
+
+
+def draw(k: Key, shape, mode: str, device, offset: int = 0):
+    """The draw of key ``k`` shaped ``shape`` from counter ``offset`` (mode
+    "bits", "normal" or "rademacher"): the plain version on the CPU, one
+    draw-kernel launch on a CUDA device, and an error on any other."""
+    if torch.device(device).type == "cpu":
+        return draw_plain(k, shape, mode, device, offset)
+    return prng_draw.draw(k, shape, mode, device, offset)
 
 
 def sample_direction(k: Key, shape, dist: str, device) -> torch.Tensor:
@@ -156,7 +197,7 @@ def sample_direction(k: Key, shape, dist: str, device) -> torch.Tensor:
         sqrt_d = float(np.float32(math.sqrt(g.numel())))
         return g / (norm + 1e-12) * sqrt_d
     if dist == "rademacher":
-        return rademacher_from_bits(bits(k, shape, device))
+        return draw(k, shape, "rademacher", device)
     raise ValueError(f"unknown direction distribution: {dist}")
 
 

@@ -18,9 +18,9 @@ formulas as the XLA CPU backend emits them:
 Every FMA goes through ``fma32``, which is exact on any device: the
 product of two f32 values is exact in f64, the f64 sum is then rounded
 to odd (TwoSum gives its error), and f64 -> f32 rounding of a
-round-to-odd value equals one correctly rounded f32 FMA. The CUDA kernel
-(kernels/csrc/defended_encode.cu) carries the same formulas with
-``__fmaf_rn``.
+round-to-odd value equals one correctly rounded f32 FMA. The CUDA kernels
+carry the same formulas with ``__fmaf_rn`` (kernels/csrc/prng.cuh, shared
+by defended_encode.cu and prng_draw.cu).
 """
 from __future__ import annotations
 

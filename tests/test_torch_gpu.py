@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain torch versions on the card:
-defended_encode and zo_update bitwise, dual_matmul and flash_attention
+defended_encode (from keys and from bits), the draw kernel and zo_update
+bitwise, dual_matmul and flash_attention
 within a stated tolerance (their sums run in another order than the
 plain versions') and bitwise where only their own order is involved, and
 a reduced vfl-zoo step on the card against the same step on the CPU. No jax here: the machine with the card has none. Without a CUDA
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.configs import DPConfig
 from repro_torch.kernels import (dual_matmul, flash_attention, fused_round,
-                                 ops, zo_update)
+                                 ops, prng_draw, zo_update)
 from repro_torch.utils import prng
 
 pytestmark = [pytest.mark.torch, pytest.mark.gpu]
@@ -50,6 +51,118 @@ def test_defended_encode_kernel_bitwise_vs_plain(cuda, codec, mech, n):
     want = fused_round._encode_math(fused_round._defend_math(c, dpb, dp),
                                     rnb, codec)
     assert _same_bits(got, want)
+
+
+# (dp mechanism, noise multiplier): none, gaussian, laplace, clip only
+DEFENSES = [(None, None), ("gaussian", 1.3), ("laplace", 1.3),
+            ("gaussian", 0.0)]
+
+
+def _plain_keyed(c, dk, rk, dp, codec):
+    """The plain chain on the eager bits of the same keys."""
+    dpb = None if dk is None else prng.bits_plain(dk, c.shape, c.device)
+    rnb = None if rk is None else prng.bits_plain(rk, c.shape, c.device)
+    return fused_round._encode_math(fused_round._defend_math(c, dpb, dp),
+                                    rnb, codec)
+
+
+# D7's payload (one block), 2^21 (the vfl-zoo payload: kept on chip), 2^24
+# (past what the grid keeps: the second sweep), a ragged 2^20 + 3
+@pytest.mark.parametrize("n", [2048, 1 << 21, 1 << 24, (1 << 20) + 3])
+@pytest.mark.parametrize("mech,sigma", DEFENSES,
+                         ids=["none", "gaussian", "laplace", "clip_only"])
+@pytest.mark.parametrize("codec", CODECS)
+def test_defended_encode_from_keys_bitwise_vs_plain(cuda, codec, mech, sigma,
+                                                    n):
+    c = 2.0 * torch.randn(n, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(n))
+    dp = None if mech is None else DPConfig(
+        noise_multiplier=sigma, clip=1.0, mechanism=mech)
+    dk = None if dp is None or sigma == 0.0 else (11, n)
+    rk = (12, n) if codec == "int8" else None
+    n0 = fused_round.defended_encode.launches
+    d0 = prng_draw.draw.launches
+    got = fused_round.defended_encode_keyed(c, dk, rk, dp, codec)
+    assert fused_round.defended_encode.launches == n0 + 1
+    assert prng_draw.draw.launches == d0
+    assert _same_bits(got, _plain_keyed(c, dk, rk, dp, codec))
+
+
+@pytest.mark.parametrize("n", [2048, 5000, 1 << 24])
+def test_defended_encode_int8_from_keys_without_a_rounding_key(cuda, n):
+    c = torch.randn(n, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3))
+    for dp in (None, DPConfig(noise_multiplier=1.0, clip=0.5)):
+        dk = None if dp is None else (4, 5)
+        got = fused_round.defended_encode_keyed(c, dk, None, dp, "int8")
+        assert _same_bits(got, _plain_keyed(c, dk, None, dp, "int8"))
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_defended_encode_takes_an_unaligned_payload(cuda, codec):
+    """A contiguous view one element into its storage: 4-byte loads."""
+    base = torch.randn(4097, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(4))
+    c = base[1:]
+    assert c.data_ptr() % 16 != 0 and c.is_contiguous()
+    dp = DPConfig(noise_multiplier=1.3, clip=1.0)
+    rk = (2, 2) if codec == "int8" else None
+    got = fused_round.defended_encode_keyed(c, (1, 1), rk, dp, codec)
+    assert _same_bits(got, _plain_keyed(c, (1, 1), rk, dp, codec))
+    dpb = prng.bits((1, 1), c.shape, cuda)
+    rnb = prng.bits(rk, c.shape, cuda) if rk else None
+    assert _same_bits(fused_round.defended_encode(c, dpb, rnb, dp, codec),
+                      got)
+
+
+@pytest.mark.parametrize("n", [1, 10, 80, 128, 2048, 12544, 32768, 1 << 24,
+                               38895616, 155582464])
+@pytest.mark.parametrize("mode", ["bits", "normal", "rademacher"])
+def test_draw_kernel_bitwise_vs_the_eager_chain(cuda, mode, n):
+    """D7's leaf sizes (the tail alone at 1), vfl-zoo's party leaves, up to
+    qwen1.5-0.5b's embedding (151936 x 1024)."""
+    k = prng.fold_in(prng.key(n), 1)
+    n0 = prng_draw.draw.launches
+    got = prng_draw.draw(k, (n,), mode, cuda)
+    assert prng_draw.draw.launches == n0 + 1
+    want = prng.draw_plain(k, (n,), mode, cuda)
+    assert got.dtype == want.dtype and _same_bits(got, want)
+
+
+@pytest.mark.parametrize("mode", ["bits", "normal", "rademacher"])
+def test_draw_kernel_across_counter_2_to_the_32(cuda, mode):
+    k = (0x12345678, 0x9ABCDEF0)
+    for offset, n in (((1 << 32) - 1000, 5003), ((7 << 32) - 2, 7)):
+        got = prng_draw.draw(k, (n,), mode, cuda, offset=offset)
+        assert _same_bits(got, prng.draw_plain(k, (n,), mode, cuda,
+                                               offset))
+
+
+def test_prng_entry_points_are_one_draw_launch_each(cuda):
+    k, shape = prng.key(3), (98, 128)
+    for fn, want in (
+            (lambda: prng.bits(k, shape, cuda), prng.bits_plain),
+            (lambda: prng.normal(k, shape, cuda), prng.normal_plain),
+            (lambda: prng.sample_direction(k, shape, "gaussian", cuda),
+             prng.normal_plain),
+            (lambda: prng.sample_direction(k, shape, "rademacher", cuda),
+             lambda *a: prng.rademacher_from_bits(prng.bits_plain(*a)))):
+        n0 = prng_draw.draw.launches
+        got = fn()
+        assert prng_draw.draw.launches == n0 + 1
+        assert _same_bits(got, want(k, shape, cuda))
+    n0 = prng_draw.draw.launches
+    u = prng.sample_direction(k, shape, "uniform", cuda)
+    assert prng_draw.draw.launches == n0 + 1
+    assert u.shape == shape and bool(torch.isfinite(u).all())
+
+
+def test_draw_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        prng_draw.draw((1, 2), (4,), "uniform", cuda)
+    with pytest.raises(ValueError):
+        prng_draw.draw((1, 2), (4,), "bits", cuda, offset=(1 << 64) - 2)
+    assert prng_draw.draw((1, 2), (0, 3), "bits", cuda).shape == (0, 3)
 
 
 @pytest.mark.parametrize("n", [1, 10, 80, 128, 4097, 12544])
@@ -296,8 +409,13 @@ def test_reduced_vfl_zoo_steps_on_the_card_match_the_cpu(cuda):
             "--fused", "--codec", "int8", "--lr", "1e-2", "--log-every",
             "100"]
     n0 = flash_attention.flash_attention.launches
+    d0 = prng_draw.draw.launches
     on_card = train.main(argv)["h"]
     assert flash_attention.flash_attention.launches == n0 + 3 * 3 * 2
+    # the initial weights (the server's embedding, 7 matrices in each of 2
+    # layers, and 4 parties' embedding slice, w1 and w2), then 17 gaussian
+    # directions a step
+    assert prng_draw.draw.launches == d0 + (1 + 7 * 2 + 3 * 4) + 3 * 17
     on_cpu = train.main(argv + ["--device", "cpu"])["h"]
     assert max(abs(a - b) for a, b in zip(on_card, on_cpu)) < 1e-3
 

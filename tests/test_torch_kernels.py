@@ -15,7 +15,8 @@ from repro.configs import DPConfig as RefDPConfig
 from repro.kernels import fused_round as ref_fr
 from repro.kernels.zo_update import zo_update_pallas
 from repro_torch.configs import DPConfig
-from repro_torch.kernels import fused_round, zo_update
+from repro_torch.kernels import fused_round, prng_draw, zo_update
+from repro_torch.utils import prng
 
 pytestmark = pytest.mark.torch
 # small tensors: torch's intra-op thread pool only adds overhead here, and
@@ -113,17 +114,40 @@ def test_zo_update_plain_bitwise_vs_pallas(n):
 
 def test_wrappers_take_the_plain_version_only_on_cpu():
     """A CPU tensor runs the plain version and counts no launch; any other
-    device is a kernel launch or an error, never a fallback."""
-    before = (zo_update.zo_update.launches,
-              fused_round.defended_encode.launches)
+    device is a kernel launch or an error, never a fallback. The same for
+    the draw kernel's wrapper (``prng.draw``) and the prng entry points
+    that call it; the draw kernel's own launch raises on the CPU."""
+    counters = (zo_update.zo_update, fused_round.defended_encode,
+                prng_draw.draw)
+    before = tuple(f.launches for f in counters)
     w = torch.zeros(4)
     b = torch.zeros(4, dtype=torch.int32)
+    dp = DPConfig(noise_multiplier=1.0, clip=1.0)
     zo_update.zo_update(w, b, 1.0)
     fused_round.defended_encode(w, None, None, None, "f32")
-    assert (zo_update.zo_update.launches,
-            fused_round.defended_encode.launches) == before
+    fused_round.defended_encode_keyed(w, (1, 2), (3, 4), dp, "int8")
+    for mode in prng_draw.MODES:
+        prng.draw((1, 2), (4,), mode, "cpu")
+    prng.bits((1, 2), (4,), "cpu")
+    prng.normal((1, 2), (4,), "cpu")
+    for dist in ("gaussian", "uniform", "rademacher"):
+        prng.sample_direction((1, 2), (4,), dist, "cpu")
+    assert tuple(f.launches for f in counters) == before
     meta_w = torch.zeros(4, device="meta")
     with pytest.raises(ValueError):
         zo_update.zo_update(meta_w, b.to("meta"), 1.0)
     with pytest.raises(ValueError):
         fused_round.defended_encode(meta_w, None, None, None, "f32")
+    with pytest.raises(ValueError):
+        fused_round.defended_encode_keyed(meta_w, (1, 2), (3, 4), dp, "int8")
+    for mode in prng_draw.MODES:
+        for draw in (prng.draw, prng_draw.draw):
+            with pytest.raises(ValueError):
+                draw((1, 2), (4,), mode, "meta")
+        with pytest.raises(ValueError):
+            prng_draw.draw((1, 2), (4,), mode, "cpu")
+    with pytest.raises(ValueError):
+        prng.bits((1, 2), (4,), "meta")
+    for dist in ("gaussian", "uniform", "rademacher"):
+        with pytest.raises(ValueError):
+            prng.sample_direction((1, 2), (4,), dist, "meta")
