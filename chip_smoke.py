@@ -84,12 +84,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    exactly 1200 updates, 1200 dual_matmul and 6 x 1200 draw launches each
    (the directions of 4 party and 2 server leaves an update), falling loss,
    exact wire bytes; both wall-clock times and their ratio.
-6. The ``{"kernels": [...]}`` line, the card line, and last
+6. Scan: the device-scan trainer (``asyrevel.train``) on the defended
+   paper FCN at D7 width (n = 60000, batch 2048, fused int8 + gaussian DP
+   calibrated by the port's accountant to epsilon 8, delta 1e-5, clip 1
+   for each run's steps and directions; rademacher, mu 5e-2): asyrevel
+   for 50 steps at K = 1 and K = 4, synrevel for 10 steps, each fused and
+   unfused with the counters zeroed just before it and read just after.
+   Launches per step exact (``scan_launches``), losses finite, and the
+   fused run's per-step h and final state bitwise the unfused run's. Then
+   ``run_serial`` at K = 4 (10 rounds of 8): launches exact
+   (``host_round_launches``), bytes exact against the analytic formula
+   (up (1+K)(B + 4), down (1+K) 4 a round), fused bitwise unfused. Then
+   the card against the CPU (D7 at scale 0.01, batch 64, 20 asyrevel
+   steps at K = 2, fused f32 + DP: losses within 1e-3) and
+   examples/quickstart_torch.py on the card (4000 steps: train acc > 0.8).
+7. The ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
-round and the async experiment's configuration, and one step of the
+round and the async experiment's configuration, 4 steps of the scan
+trainer's defended D7 cell (asyrevel, K = 1), and one step of the
 vfl-zoo cell, with ``torch.profiler``,
 printing the device-busy share, the kernels by device time, the
 flash_attention kernels' device time and launches, and what the draws
@@ -409,13 +424,15 @@ def kernel_phase(dev, int_rate):
             if not bitwise_equal(got, want):
                 raise AssertionError(f"zo_update != plain at N={n}")
             worst["zo_update"] = max(worst["zo_update"], max_abs(got, want))
-        kern = time_ms(lambda: zo_update.zo_update(w, b, -5e-2))
+        def kernel():
+            return zo_update.zo_update(w, b, -5e-2)
+        kern = time_ms(kernel)
         plain = time_ms(lambda: zo_update.zo_update_plain(w, b, -5e-2))
         bound = max(12 * n / HBM_BYTES_PER_S,
                     2 * n / F32_FLOPS_PER_S) * 1e3
         row = {"kernel": "zo_update", "n": n, "bitwise": True,
-               "kernel_ms": kern, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": "bytes"}
+               "kernel_ms": kern, "kernel_traced_ms": traced_ms(kernel),
+               "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes"}
         log(json.dumps(row))
         if n == 12544:
             timed["zo_update"] = row
@@ -976,6 +993,233 @@ def async_phase(dev):
     return stats
 
 
+# --------------------------------------------------------------- scan phase --
+
+# the scan runs: (algorithm, directions K, steps)
+SCAN_RUNS = (("asyrevel", 1, 50), ("asyrevel", 4, 50), ("synrevel", 1, 10))
+# the paper FCN's perturbed leaves: a party's w1, b1, w2, b2; the server's
+# w, b
+PARTY_LEAVES, SERVER_LEAVES = 4, 2
+
+
+def scan_launches(algorithm, K, fused, q):
+    """Launches of one scan-trainer step on the defended paper FCN (int8
+    + gaussian DP, rademacher directions). P parties perturb (asyrevel 1,
+    synrevel q), K directions each. Fused: the q stale c's and the P·K
+    c_hat's are one defended_encode each (bits from the keys); each
+    perturbed leaf is a draw of its bits and a zo_update. Unfused: each of
+    those q + P·K releases draws its noise and its rounding bits, and each
+    perturbed leaf its direction. Both draw the step's batch indices as
+    two bit streams (randint on the card). The towers run as plain
+    matmuls."""
+    P = 1 if algorithm == "asyrevel" else q
+    leaves = P * K * PARTY_LEAVES + SERVER_LEAVES
+    releases = q + P * K
+    if fused:
+        return {"defended_encode": releases, "zo_update": leaves,
+                "dual_matmul": 0, "flash_attention": 0,
+                "prng_draw": leaves + 2}
+    return {"defended_encode": 0, "zo_update": 0, "dual_matmul": 0,
+            "flash_attention": 0, "prng_draw": leaves + 2 * releases + 2}
+
+
+def host_round_launches(K, fused):
+    """Launches of one defended party round of the host executor with K
+    directions: the K tower pairs are one dual_matmul each; c and the K
+    c_hat's are one defended_encode each fused, two bit draws each
+    unfused; each perturbed leaf is a draw (and fused a zo_update)."""
+    leaves = K * PARTY_LEAVES + SERVER_LEAVES
+    if fused:
+        return {"defended_encode": 1 + K, "zo_update": leaves,
+                "dual_matmul": K, "flash_attention": 0, "prng_draw": leaves}
+    return {"defended_encode": 0, "zo_update": 0, "dual_matmul": K,
+            "flash_attention": 0, "prng_draw": leaves + 2 * (1 + K)}
+
+
+def scan_config(K, fused, dp, **kw):
+    from repro_torch.configs import VFLConfig
+    return VFLConfig(**{**dict(num_parties=8, direction="rademacher",
+                               mu=5e-2, lr_party=2e-2, lr_server=1e-2,
+                               codec="int8", dp=dp, fused=fused,
+                               num_directions=K), **kw})
+
+
+def scan_dp(rounds, K):
+    """DPConfig(epsilon=8, delta=1e-5, clip=1) calibrated by the port's
+    accountant for ``rounds`` rounds of K directions."""
+    from repro_torch.configs import DPConfig
+    from repro_torch.dp.accountant import resolve_dp
+    return resolve_dp(DPConfig(epsilon=8.0, delta=1e-5, clip=1.0),
+                      rounds=rounds, num_directions=K)
+
+
+def _states_bitwise(a, b) -> bool:
+    from repro_torch.utils import trees
+    return all(bitwise_equal(x, y)
+               for ta, tb in ((a.w0, b.w0), (a.parties, b.parties),
+                              (a.hist, b.hist))
+               for x, y in zip(trees.leaves(ta), trees.leaves(tb)))
+
+
+def scan_phase(dev):
+    """The device-scan trainer (``asyrevel.train``) on the defended paper
+    FCN at D7 width, fused against unfused, then the host round at K = 4,
+    the card against the CPU, and the quickstart's training check."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import PaperFCNConfig
+    from repro_torch.core import asyrevel, comms
+    from repro_torch.core.async_host import HostAsyncTrainer
+    from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.data.synthetic import make_paper_dataset
+    from repro_torch.data.vertical import pad_party_views, vertical_partition
+    from repro_torch.utils import prng
+
+    q, batch = 8, 2048
+    Xp, y, spec, _ = d7_data(q)
+    model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
+                                         num_classes=spec.classes,
+                                         num_parties=q))
+    data = {"x": torch.as_tensor(Xp, device=dev),
+            "y": torch.as_tensor(y, device=dev)}
+    stats = {"scan": {}}
+    for alg, K, steps in SCAN_RUNS:
+        dp = scan_dp(steps, K)
+        runs = {}
+        for fused in (True, False):
+            vfl = scan_config(K, fused, dp)
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = asyrevel.train(model, vfl, data, prng.key(0),
+                                           steps, batch, algorithm=alg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+            launches = read_launches()
+            want = {name: n * steps for name, n in
+                    scan_launches(alg, K, fused, q).items()}
+            want["prng_draw"] += fcn_init_draws(q)
+            name = f"{alg}_k{K}_{'fused' if fused else 'unfused'}"
+            log(f"[scan] {name}: sigma {dp.noise_multiplier:.6g} over "
+                f"{steps} steps, {ms:.3f} ms per step, launches {launches}")
+            if launches != want:
+                raise AssertionError(f"scan {name} launches {launches}, "
+                                     f"want {want}")
+            h = losses.cpu()
+            if h.shape != (steps,) or not bool(torch.isfinite(h).all()):
+                raise AssertionError(f"scan {name} losses {h}")
+            runs[fused] = (state, h)
+            stats["scan"][name] = {"ms_per_step": ms, "launches": launches,
+                                   "sigma": dp.noise_multiplier,
+                                   "h_first": float(h[0]),
+                                   "h_last": float(h[-1])}
+        (s_f, h_f), (s_u, h_u) = runs[True], runs[False]
+        if not (bitwise_equal(h_f, h_u) and _states_bitwise(s_f, s_u)):
+            raise AssertionError(f"scan {alg} K={K}: fused != unfused")
+        log(f"[scan] {alg} K={K}: {steps} steps, h {float(h_f[0]):.4f} -> "
+            f"{float(h_f[-1]):.4f}; fused losses and final state bitwise "
+            "equal to unfused")
+
+    # the host executor's K-direction round at D7 width
+    K, rounds = 4, 10
+    dp = scan_dp(rounds, K)
+    host = {}
+    for fused in (True, False):
+        zero_launches()
+        tr = HostAsyncTrainer(model, scan_config(K, fused, dp), Xp, y,
+                              batch_size=batch, seed=0, compute_cost_s=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tr.run_serial(rounds)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (rounds * q)
+        launches = read_launches()
+        want = {name: n * rounds * q
+                for name, n in host_round_launches(K, fused).items()}
+        want["prng_draw"] += fcn_init_draws(q)
+        log(f"[scan] run_serial K={K} {'fused' if fused else 'unfused'}: "
+            f"{ms:.3f} ms per party round, launches {launches}")
+        if launches != want:
+            raise AssertionError(f"host K={K} launches {launches}, want "
+                                 f"{want}")
+        updates = rounds * q
+        per = comms.zoo_vfl_round(batch, codec="int8", num_directions=K)
+        if (res.bytes_up, res.bytes_down) != (updates * per.up_bytes,
+                                              updates * per.down_bytes) or \
+                per.up_bytes != (1 + K) * (batch + 4) or \
+                per.down_bytes != (1 + K) * 4:
+            raise AssertionError(f"host K={K} bytes {res.bytes_up}, "
+                                 f"{res.bytes_down}")
+        comms.validate_channel(tr.channel, updates, batch, codec="int8",
+                               num_directions=K)
+        host[fused] = (tr, [h for _, h in res.history])
+        stats[f"run_serial_k{K}_{'fused' if fused else 'unfused'}"] = {
+            "ms_per_party_round": ms, "launches": launches,
+            "bytes_up": res.bytes_up, "bytes_down": res.bytes_down}
+    (tr_f, h_f), (tr_u, h_u) = host[True], host[False]
+    if h_f != h_u or not all(math.isfinite(h) for h in h_f):
+        raise AssertionError("host K=4: fused losses != unfused")
+    for m in range(q):
+        for k in tr_f.party_w[m]:
+            if not bitwise_equal(tr_f.party_w[m][k], tr_u.party_w[m][k]):
+                raise AssertionError(f"host K=4 party {m} {k}: fused != "
+                                     "unfused")
+    for k in tr_f.server.w0:
+        if not bitwise_equal(tr_f.server.w0[k], tr_u.server.w0[k]):
+            raise AssertionError(f"host K=4 server {k}: fused != unfused")
+    log(f"[scan] run_serial K={K}: fused bitwise equal to unfused; bytes up "
+        f"{tr_f.server.losses.bytes_up} down {tr_f.server.losses.bytes_down}"
+        " (exact, = analytic)")
+
+    # train's batch indices on the card (two draws and int64 ops) are the
+    # host's randint, its plain version, exactly
+    for t in (0, 1, SCAN_RUNS[0][2] - 1):
+        k_t = prng.split_at(prng.fold_in(prng.key(0), 7), t)
+        got = asyrevel.batch_indices(prng.key(0), t, batch, len(y), dev)
+        if got.cpu().tolist() != prng.randint(k_t, (batch,), 0, len(y)):
+            raise AssertionError(f"scan step {t}: batch indices on the card "
+                                 "!= the host's randint")
+    log(f"[scan] batch indices on the card equal the host's randint at "
+        f"batch {batch}")
+
+    # the card against the CPU (the CPU port is held to the reference by
+    # tests/test_torch_scan.py): D7 at scale 0.01, batch 64, 20 asyrevel
+    # steps at K = 2, fused f32 + gaussian DP. The f32 sums run in other
+    # orders on the two devices, a few ulps of h a step, and each step's
+    # coefficient divides them by mu; a wrong key or bit moves h by 1e-1.
+    (Xs, ys), _ = make_paper_dataset("D7_MNIST", scale=0.01)
+    Xs, _ = pad_party_views(vertical_partition(Xs, q)[0])
+    vfl = scan_config(2, True, scan_dp(20, 2), codec="f32")
+    h_dev, h_cpu = (asyrevel.train(model, vfl, {"x": Xs, "y": ys},
+                                   prng.key(0), 20, 64, device=d)[1].cpu()
+                    for d in (dev, "cpu"))
+    gap = float((h_dev - h_cpu).abs().max())
+    if not gap < 1e-3:
+        raise AssertionError(f"scan card vs CPU losses differ by {gap}")
+    log(f"[scan] card vs CPU, D7 at scale 0.01, 20 asyrevel steps at K=2: "
+        f"max loss gap {gap:.3g}")
+    stats["card_vs_cpu_gap"] = gap
+
+    # the training check: examples/quickstart_torch.py on the card
+    spec_ = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    quick = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(quick)
+    res = quick.run(dev)
+    final = float(np.mean(res["losses"][-100:]))
+    log(f"[scan] quickstart on the card: {len(res['losses'])} steps in "
+        f"{res['seconds']:.2f} s, final loss {final:.4f}, train acc "
+        f"{res['acc']:.3f}")
+    if not res["acc"] > 0.8:
+        raise AssertionError(f"quickstart train acc {res['acc']}")
+    stats["quickstart"] = {"steps": len(res["losses"]),
+                           "seconds": res["seconds"], "final_loss": final,
+                           "acc": res["acc"]}
+    return stats
+
+
 # ------------------------------------------------------------ vfl-zoo phase --
 
 ZOO_STEPS = 5
@@ -1214,9 +1458,54 @@ def _zoo_workload(dev):
     return (lambda: float(step(state, data)[1])), 1, "step"
 
 
+def _scan_workload(dev):
+    """4 steps of the scan trainer's defended D7 cell (asyrevel, K = 1,
+    fused int8 + gaussian DP) from a warmed-up state, each with its batch
+    indices drawn and gathered on the card as ``train`` does: the steps
+    alone, without the set-up of ``train``."""
+    import torch
+    from repro_torch.configs import PaperFCNConfig
+    from repro_torch.core import asyrevel
+    from repro_torch.core.exchange import ZOExchange
+    from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.utils import prng
+
+    q, batch, steps = 8, 2048, 4
+    Xp, y, spec, _ = d7_data(q)
+    model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
+                                         num_classes=spec.classes,
+                                         num_parties=q))
+    vfl = scan_config(1, True, scan_dp(50, 1))
+    x, yt = torch.as_tensor(Xp, device=dev), torch.as_tensor(y, device=dev)
+    key, n = prng.key(0), len(y)
+    ex = ZOExchange.from_config(vfl)
+    state = asyrevel.init_state(model, vfl, key, dev)
+
+    def step(s, t):
+        i = asyrevel.batch_indices(key, t, batch, n, dev)
+        return asyrevel.asyrevel_step(model, vfl, s, {"x": x[i], "y": yt[i]},
+                                      ex)[0]
+    for t in range(2):
+        state = step(state, t)
+    # the host's share of a step that no device trace shows: the discrete
+    # draws (m_t and the delays), host clock
+    t0 = time.perf_counter()
+    for t in range(20):
+        asyrevel.draw_party_and_delays(vfl, state._replace(step=t))
+    log(json.dumps({"scan_host_ms_per_step": {
+        "draw_party_and_delays": (time.perf_counter() - t0) * 1e3 / 20}}))
+
+    def run():
+        s = state
+        for t in range(2, steps + 2):
+            s = step(s, t)
+    return run, steps, "step"
+
+
 def profile_phase(dev, cell):
     """Trace one cell's workload with ``torch.profiler``: 2 serial rounds of
-    a D7 FCN cell ("d7", "async") or one vfl-zoo step ("zoo"). Each
+    a D7 FCN cell ("d7", "async"), 4 scan-trainer steps ("scan") or one
+    vfl-zoo step ("zoo"). Each
     ``prng.bits`` and ``prng.sample_direction`` call is a
     ``record_function`` span; a direction's span holds its bits span."""
     import torch
@@ -1224,8 +1513,8 @@ def profile_phase(dev, cell):
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.utils import prng
 
-    run, units, unit = (_zoo_workload(dev) if cell == "zoo"
-                        else _fcn_workload(cell))
+    run, units, unit = {"zoo": _zoo_workload, "scan": _scan_workload}.get(
+        cell, lambda _: _fcn_workload(cell))(dev)
 
     plain = {name: getattr(prng, name.split(".")[1]) for name in PROFILE_SPANS}
 
@@ -1338,7 +1627,7 @@ def main() -> int:
     draw_sass()
 
     if "--profile" in sys.argv[1:]:
-        for cell in ("d7", "async", "zoo"):
+        for cell in ("d7", "async", "scan", "zoo"):
             profile_phase(dev, cell)
         return 0
     timed, worst = kernel_phase(dev, int_rate)
@@ -1351,6 +1640,7 @@ def main() -> int:
     log(json.dumps({"vfl_zoo": zoo_stats}))
     launches["flash_attention"] = zoo_launches["flash_attention"]
     log(json.dumps({"async": async_phase(dev)}))
+    log(json.dumps({"scan": scan_phase(dev)}))
 
     sources = {
         "defended_encode": ("src/repro_torch/kernels/csrc/defended_encode.cu",

@@ -4,10 +4,8 @@ copied from the reference's configs/base.py with the same fields,
 defaults, validation and ``enabled``/``resolved`` semantics.
 ``ModelConfig`` keeps the fields the dense family reads; the fields of the
 moe, ssm, hybrid, vlm and audio families, of serving and of remat are
-not ported yet.
-The RDP accountant that calibrates ``noise_multiplier`` from a target
-epsilon is not ported yet, so a defended run sets ``noise_multiplier``
-explicitly.
+not ported yet. ``dp/accountant.py`` calibrates ``DPConfig.noise_multiplier``
+from a target epsilon.
 """
 from __future__ import annotations
 
@@ -89,9 +87,10 @@ class DPConfig:
     so each party's guarantee depends only on its OWN releases);
     ``epsilon=inf`` turns the subsystem transparently off (no clip, no
     noise — bit-identical to ``dp=None``). ``noise_multiplier`` is the
-    resolved noise scale in clip units. The port has no accountant yet,
-    so a defended run sets it explicitly; the exchange refuses to run
-    with an uncalibrated epsilon target.
+    resolved noise scale in clip units; leave it ``None`` and let
+    ``repro_torch.dp.accountant.resolve_dp(dp, rounds=...)`` calibrate it
+    from the target epsilon once the round budget is known. The exchange
+    refuses to run with an uncalibrated epsilon target.
     """
     epsilon: Optional[float] = None     # flag: --dp-epsilon — target eps
     #                                     over the run (inf = off)
@@ -102,8 +101,8 @@ class DPConfig:
     #                                     laplace (pure-DP); library/bench
     #                                     knob, the CLI defense is gaussian
     noise_multiplier: Optional[float] = None   # internal-only: sigma (noise
-    #                                     std = sigma*clip) — set explicitly
-    #                                     until the accountant is ported
+    #                                     std = sigma*clip) — resolved by the
+    #                                     accountant
     sample_rate: Optional[float] = None  # internal-only: Poisson-subsampling
     #                                      rate q of the minibatch draw;
     #                                      opt-in: None means account WITHOUT

@@ -19,7 +19,11 @@ message round (perturbation, up-link codec, coefficient, update apply)
 is core/exchange.py's ZOExchange, including the optional DP defense and
 the ``fused`` path that runs the defended_encode and zo_update kernels.
 The FCN's two tower evaluations run on the dual_matmul kernel on the
-card, fused or not (core/vfl.py). Every boundary crossing is a typed
+card, fused or not (core/vfl.py). With ``num_directions`` K > 1 a round
+sends c and K c_hat messages up (each with ``meta["dir"]``) and gets h and
+K h_bars back in one loss_down; the party evaluates one pair per
+direction (K dual_matmul launches for the FCN) and applies the mean over
+the K coefficients. Every boundary crossing is a typed
 core/wire.py Message through the trainer's Channel, and the byte
 counters are measured twice independently: by the exchange's CommsMeter
 at the codec and by the channel per message kind.
@@ -42,12 +46,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import VFLConfig
-from repro_torch.core.exchange import CommsMeter, ZOExchange, to_host
+from repro_torch.core.exchange import (CommsMeter, ZOExchange,
+                                       mean_over_directions, to_host)
 from repro_torch.core.vfl import VFLModel
 from repro_torch.core.wire import (SERVER, Channel, InMemoryChannel, Message,
                                    party, party_index)
 from repro_torch.kernels import build
-from repro_torch.utils import prng
+from repro_torch.utils import prng, trees
 from repro_torch.utils.device import resolve_device
 
 # Every torch call of the party and server math holds this lock (the
@@ -62,7 +67,8 @@ class HostRunResult:
     updates: int = 0
     comms: CommsMeter = field(default_factory=CommsMeter)
 
-    # per ROUND: up = the c payload plus one c_hat, down = (h, h_bar)
+    # per ROUND: up = the c payload plus one c_hat per direction, down =
+    # (h, h_bar_1..K)
     @property
     def bytes_up(self) -> int:
         return self.comms.up_bytes
@@ -79,23 +85,37 @@ class HostRunResult:
         return None
 
 
-def _serve(model, vfl, ex, w0, cs, cs_hat, y, key):
-    """Algorithm-1 server side; Eq. 17 routes through the exchange."""
+def _serve(model, vfl, ex, w0, cs, cs_hats, y, key):
+    """Algorithm-1 server side: h on the c table, one h_bar per received
+    c_hat table; Eq. 17 routes through the exchange and re-evaluates on
+    the base table."""
     h = model.server_forward(w0, cs, y)
-    h_bar = model.server_forward(w0, cs_hat, y)
+    h_bars = [model.server_forward(w0, cs_hat, y) for cs_hat in cs_hats]
     if vfl.perturb_server:
         w0 = ex.server_update(w0, key, h,
                               lambda w0p: model.server_forward(w0p, cs, y),
                               vfl.lr_server)
-    return h, h_bar, w0
+    return h, h_bars, w0
 
 
-def _party_local(model, ex, w_m, x_m, key, m):
-    """Perturb + both local evals (one party_forward_pair) + both
-    regularizers."""
-    w_p, u = ex.perturb(w_m, key)
-    c, c_hat = model.party_forward_pair(w_m, w_p, u, x_m, m, ex.mu)
-    return c, c_hat, model.regularizer(w_m), model.regularizer(w_p), u
+def _party_local(model, ex, w_m, x_m, keys, m):
+    """Perturb + both local evals (one party_forward_pair) + the perturbed
+    regularizer, per direction key. Every pair's first output is
+    F_m(w_m; x_m) again, and must be bitwise the first one's, which is the
+    c sent up."""
+    c, c_hats, regs, us = None, [], [], []
+    for k_dir in keys:
+        w_p, u = ex.perturb(w_m, k_dir)
+        c_k, c_hat = model.party_forward_pair(w_m, w_p, u, x_m, m, ex.mu)
+        if c is None:
+            c = c_k
+        elif not torch.equal(c.view(torch.int32), c_k.view(torch.int32)):
+            raise RuntimeError(f"party {m}: the base tower output of one "
+                               "direction's pair differs from the first's")
+        c_hats.append(c_hat)
+        regs.append(model.regularizer(w_p))
+        us.append(u)
+    return c, c_hats, model.regularizer(w_m), regs, us
 
 
 # ---- the party-side round, split at the wire boundary ---------------------
@@ -130,24 +150,34 @@ class PartyRoundPrep:
     wire_hats: list
     reg0: float
     regs: list
-    us: object            # the u tree of the round's direction
+    us: list              # the K direction trees
 
 
 def party_round_prepare(model, vfl: VFLConfig, ex: ZOExchange, w_m, X,
                         idx, key, m: int) -> PartyRoundPrep:
-    """Perturb/evaluate locally and encode both up-link payloads (the
-    compute half of Algorithm 1's party round — no wire crossing). ``X``
-    is the padded feature matrix as a tensor on the party's device. With
-    ``ex.fused`` each encode is one defended_encode kernel and the
-    perturbation is the zo_update kernel."""
+    """Perturb/evaluate locally and encode the up-link payloads (the
+    compute half of Algorithm 1's party round — no wire crossing): c and
+    one c_hat per direction. ``X`` is the padded feature matrix as a
+    tensor on the party's device. With ``ex.fused`` each encode is one
+    defended_encode kernel and each perturbation the zo_update kernel.
+    With K directions each c_hat is its own message with its own rounding
+    key, ``fold_name(k_dir, "codec_hat")`` for k_dir in ``split(key, K)``;
+    at K = 1 the direction key is ``key`` itself and c_hat's rounding key
+    ``fold_in(key, 2)``, as the reference's."""
+    if vfl.num_directions == 1:
+        keys, hat_keys = [key], [prng.fold_in(key, 2)]
+    else:
+        keys = prng.split(key, vfl.num_directions)
+        hat_keys = [prng.fold_name(k, "codec_hat") for k in keys]
     with _DEVICE_LOCK:
         idx_t = torch.as_tensor(np.asarray(idx), device=X.device)
         x_m = model.slice_features(X[idx_t], m)
-        c, c_hat, reg0, reg1, u = _party_local(model, ex, w_m, x_m, key, m)
+        c, c_hats, reg0, regs, us = _party_local(model, ex, w_m, x_m, keys, m)
         wire_c = to_host(ex.encode_up(c, prng.fold_in(key, 1)))
-        wire_c_hat = to_host(ex.encode_up(c_hat, prng.fold_in(key, 2)))
-        return PartyRoundPrep(wire_c, [wire_c_hat], float(reg0),
-                              [float(reg1)], u)
+        wire_hats = [to_host(ex.encode_up(ch, k))
+                     for ch, k in zip(c_hats, hat_keys)]
+        return PartyRoundPrep(wire_c, wire_hats, float(reg0),
+                              [float(r) for r in regs], us)
 
 
 def party_round_messages(channel: Channel, m: int, rnd: int, idx,
@@ -166,16 +196,23 @@ def party_round_messages(channel: Channel, m: int, rnd: int, idx,
 
 def party_round_apply(vfl: VFLConfig, ex: ZOExchange, w_m,
                       prep: PartyRoundPrep, scalars):
-    """Form the two-point coefficient from the received loss_down scalars
-    and apply the block update (Algorithm 1 line 7). The coefficient is a
-    float64 Python scalar; it becomes f32 where the reference's jitted
-    apply receives it."""
-    h, h_bar = scalars
-    coeff = ex.coefficient(h_bar + vfl.lam * prep.regs[0],
-                           h + vfl.lam * prep.reg0)
+    """Form the two-point coefficient(s) from the received loss_down
+    scalars (h, h_bar_1..K) and apply the block update (Algorithm 1 line
+    7). Each coefficient is a float64 Python scalar; it becomes f32 where
+    the reference's jitted apply receives it. K directions apply
+    w_m - lr * mean_k coeff_k * u_k."""
+    h, *h_bars = scalars
+    coeffs = [ex.coefficient(hb + vfl.lam * r, h + vfl.lam * prep.reg0)
+              for hb, r in zip(h_bars, prep.regs)]
     with _DEVICE_LOCK:
-        return ex.apply_direction(w_m, prep.us, np.float32(coeff),
-                                  vfl.lr_party)
+        if vfl.num_directions == 1:
+            return ex.apply_direction(w_m, prep.us[0],
+                                      np.float32(coeffs[0]), vfl.lr_party)
+        device = trees.leaves(w_m)[0].device
+        g = mean_over_directions(
+            torch.tensor(coeffs, dtype=torch.float32, device=device), prep.us)
+        return trees.tree_map(
+            lambda a, gg: (a - vfl.lr_party * gg).to(a.dtype), w_m, g)
 
 
 class _Server:
@@ -213,8 +250,9 @@ class _Server:
         self.t0 = time.perf_counter()
 
     def handle(self, msg_c: Message, msg_c_hats):
-        """Algorithm 1 lines 8-11: the delivered c_up and c_hat_up
-        Messages in, the delivered loss_down Message out."""
+        """Algorithm 1 lines 8-11: the delivered c_up Message and the
+        c_hat_up Messages (one per direction) in, the delivered loss_down
+        Message of (h, h_bar_1..K) out."""
         if isinstance(msg_c_hats, Message):
             msg_c_hats = (msg_c_hats,)
         m = party_index(msg_c.sender)
@@ -223,21 +261,24 @@ class _Server:
             rnd = self.losses.updates
             key = prng.fold_in(self.pert_key, rnd)
             c = np.asarray(self.ex.decode_up(msg_c.payload), np.float32)
-            c_hat = np.asarray(self.ex.decode_up(msg_c_hats[0].payload),
-                               np.float32)
+            c_hats = [np.asarray(self.ex.decode_up(mm.payload), np.float32)
+                      for mm in msg_c_hats]
             self.c_table[idx, m] = c
             with _DEVICE_LOCK:
                 cs = torch.from_numpy(self.c_table[idx]).to(self.device)
-                cs_hat = cs.clone()                  # stale others
-                cs_hat[:, m] = torch.from_numpy(c_hat).to(self.device)
+                cs_hats = []
+                for c_hat in c_hats:
+                    cs_hat = cs.clone()              # stale others
+                    cs_hat[:, m] = torch.from_numpy(c_hat).to(self.device)
+                    cs_hats.append(cs_hat)
                 y = self.y[torch.as_tensor(idx, device=self.device)]
-                h, h_bar, self.w0 = _serve(self.model, self.vfl, self.ex,
-                                           self.w0, cs, cs_hat, y, key)
-                h, h_bar = float(h), float(h_bar)
+                h, h_bars, self.w0 = _serve(self.model, self.vfl, self.ex,
+                                            self.w0, cs, cs_hats, y, key)
+                h, h_bars = float(h), [float(hb) for hb in h_bars]
             self.losses.updates += 1
             self.losses.history.append((time.perf_counter() - self.t0, h))
             self.ex.meter.add_round()
-            payload = self.ex.send_down(h, h_bar)      # meters the bytes
+            payload = self.ex.send_down(h, *h_bars)    # meters the bytes
             return self.channel.send(
                 Message.make("loss_down", SERVER, msg_c.sender, rnd, payload))
 

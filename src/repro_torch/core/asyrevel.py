@@ -14,13 +14,22 @@ returns (h, h_bar); party m forms the two-point estimate and updates w_m;
 the server forms Eq. (17) and updates w_0. The round itself (perturb,
 codec, coefficient, apply) is core/exchange.py's ZOExchange.
 
-The step is functional, like the reference's: it returns a new state and
-leaves the old one as it was. The activation and delay draws are jax's
-categorical and randint on the step's keys (utils/prng.py), made on the
-host, so m_t and the delays are Python ints. The model is a
-``TransformerVFLModel`` (the paper models have no batch adapters in the
-port: their device trainer, ``synrevel_step``, the scan ``train`` and the
-sharded path are not ported yet).
+``synrevel_step`` is the synchronous counterpart: every party (and the
+server) computes fresh c's, perturbs and updates each step. ``train`` runs
+either step over random minibatches, as the reference's jitted
+``lax.scan`` does, in a Python loop on the device: the same batch keys
+(``split(fold_in(key, 7), steps)``), the same indices (``randint``) drawn
+and gathered on the device one step at a time, and the per-step h kept as
+device tensors and stacked once at the end, so no step waits for the
+device.
+
+The steps are functional, like the reference's: each returns a new state
+and leaves the old one as it was. The activation and delay draws are
+jax's categorical and randint on the step's keys (utils/prng.py), q + 1
+values made on the host, so m_t and the delays are Python ints. Every
+model of core/vfl.py runs here, ``num_directions`` K >= 1 (core/exchange.py). The sharded path
+(the reference's ``PmeanVFLModel``, ``ShardFoldedExchange`` and
+``train_sharded``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 from repro_torch.configs.base import VFLConfig
 from repro_torch.core.exchange import ZOExchange
 from repro_torch.utils import prng, trees, xla_math
+from repro_torch.utils.device import resolve_device
 
 
 class AsyState(NamedTuple):
@@ -47,12 +57,10 @@ def _gather_party(tree, m: int):
 
 def _stale_parties(hist, slots):
     """hist leaves: (tau+1, q, ...); slots: q ints -> (q, ...) params, row
-    j taken from slot slots[j]."""
-    q = len(slots)
-    rows = torch.arange(q)
+    j taken from slot slots[j]. The rows are views stacked in one copy, so
+    no index tensor crosses to the device."""
     return trees.tree_map(
-        lambda h: h[torch.as_tensor(slots).to(h.device), rows.to(h.device)],
-        hist)
+        lambda h: torch.stack([h[s, j] for j, s in enumerate(slots)]), hist)
 
 
 def init_state(model, vfl: VFLConfig, key, device) -> AsyState:
@@ -143,3 +151,83 @@ def asyrevel_step(model, vfl: VFLConfig, state: AsyState, batch,
         return out
     hist = trees.tree_map(write, state.hist, parties)
     return AsyState(w0, parties, hist, state.step + 1, state.key), h
+
+
+def synrevel_step(model, vfl: VFLConfig, state: AsyState, batch,
+                  ex: ZOExchange | None = None):
+    """Synchronous counterpart: every round ALL parties (and the server)
+    compute fresh c's, perturb, and update together; no staleness.
+    Returns (new_state, h)."""
+    ex = ex if ex is not None else ZOExchange.from_config(vfl)
+    key = prng.fold_in(state.key, state.step)
+    k_c = prng.fold_name(key, "codec")
+    x = model.party_args(batch)
+    y = model.server_args(batch)
+    cs = model.all_party_outputs(state.parties, x)
+    cs = model.map_party_outputs(
+        cs, lambda c, m: ex.roundtrip_up(c, prng.fold_in(k_c, m)))
+    h = model.server_forward(state.w0, cs, y)
+
+    new_parties = state.parties
+    for m in range(vfl.num_parties):
+        w_m = _gather_party(state.parties, m)
+        x_m = model.slice_features(x, m)
+
+        def f_of(w_m_pert, k_dir, m=m, x_m=x_m):
+            c_hat = model.party_forward(w_m_pert, x_m, m)
+            # k_dir already encodes the party (derived from k_u) and the
+            # direction, so every upload gets its own rounding draw
+            c_hat = ex.roundtrip_up(c_hat, prng.fold_name(k_dir, "codec_hat"))
+            h_bar = model.server_forward(
+                state.w0, model.replace_party_output(cs, c_hat, m), y)
+            return h_bar + vfl.lam * model.regularizer(w_m_pert)
+
+        g_m = ex.party_gradient(w_m, prng.fold_name(key, f"u{m}"),
+                                h + vfl.lam * model.regularizer(w_m), f_of)
+        new_parties = ex.apply_block(new_parties, m, g_m, vfl.lr_party)
+
+    if vfl.perturb_server:
+        w0 = ex.server_update(
+            state.w0, prng.fold_name(key, "u0"), h,
+            lambda w0p: model.server_forward(w0p, cs, y), vfl.lr_server)
+    else:
+        w0 = state.w0
+    return AsyState(w0, new_parties, state.hist, state.step + 1,
+                    state.key), h
+
+
+STEP_FNS = {"asyrevel": asyrevel_step, "synrevel": synrevel_step}
+
+
+def batch_indices(key, t: int, batch_size: int, n: int, device):
+    """Step t's minibatch indices, as the reference's ``train`` draws
+    them: randint(k_t, (batch_size,), 0, n) with k_t = split(fold_in(key,
+    7), steps)[t], an int64 tensor drawn on ``device``."""
+    return prng.randint_on(prng.split_at(prng.fold_in(key, 7), t),
+                           (batch_size,), 0, n, device)
+
+
+def train(model, vfl: VFLConfig, data, key, steps: int, batch_size: int,
+          algorithm: str = "asyrevel", device=None):
+    """``steps`` iterations of ``algorithm`` ("asyrevel" or "synrevel")
+    over random minibatches of ``data``, from ``init_state(key)``.
+
+    data: dict of arrays (numpy or tensors) with a shared leading sample
+    dim, moved to ``device`` once. ``device=None`` is the GPU and raises
+    without one; ``"cpu"`` runs the kernels' plain versions. Returns
+    (final_state, per-step losses as one tensor on the device)."""
+    if algorithm not in STEP_FNS:
+        raise ValueError(f"unknown algorithm {algorithm!r}; have "
+                         f"{sorted(STEP_FNS)}")
+    device = resolve_device(device)
+    data = {k: torch.as_tensor(a).to(device) for k, a in data.items()}
+    n = next(iter(data.values())).shape[0]
+    state = init_state(model, vfl, key, device)
+    step_fn, ex = STEP_FNS[algorithm], ZOExchange.from_config(vfl)
+    losses = []
+    for t in range(steps):
+        idx = batch_indices(key, t, batch_size, n, device)
+        batch = {k: a[idx] for k, a in data.items()}
+        state, h = step_fn(model, vfl, state, batch, ex)
+        losses.append(h)
+    return state, torch.stack(losses)

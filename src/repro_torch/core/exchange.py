@@ -19,8 +19,11 @@ Wires are device tensors as encoded; ``to_host`` turns one into the numpy
 payload the host executors ship (bf16 values travel as their uint16 bit
 patterns: numpy has no bfloat16), and every codec decodes both forms.
 
-The port runs one direction per round (``num_directions=1``), the
-paper's setting; the K-direction round is not ported yet.
+``num_directions`` K > 1 is the variance-reduced round: K perturbed
+blocks, K c_hat uploads each with its own rounding key, and the estimate
+averaged over the K coefficients (``party_gradient``). The reference
+vmaps the K evaluations into one dispatch; the port runs them in a
+Python loop, one direction after another, on the same keys.
 """
 from __future__ import annotations
 
@@ -180,6 +183,22 @@ class CommsMeter:
 
 # --------------------------------------------------------------- exchange --
 
+def mean_over_directions(coeffs: torch.Tensor, us: list):
+    """The K-direction estimate: leaf by leaf the mean over k of
+    coeffs[k] * u_k, for an f32 tensor of K coefficients and K direction
+    trees. The sum runs over k in order, then divides by K as a tensor on
+    the leaf's device, so every device adds the same terms in one order."""
+    K = len(us)
+
+    def mean(*u_k):
+        c = coeffs.to(u_k[0].device)
+        tot = c[0] * u_k[0]
+        for k in range(1, K):
+            tot = tot + c[k] * u_k[k]
+        return tot / torch.full((), K, dtype=tot.dtype, device=tot.device)
+    return trees.tree_map(mean, *us)
+
+
 class ZOExchange:
     """Owns the two-point round of Algorithm 1 (see module docstring)."""
 
@@ -188,9 +207,9 @@ class ZOExchange:
                  seed_replay: bool = False, codec="f32",
                  meter: CommsMeter | None = None, dp=None,
                  fused: bool = False):
-        if num_directions != 1:
-            raise ValueError("the port runs one direction per round; the "
-                             "K-direction round is not ported yet")
+        if num_directions < 1:
+            raise ValueError(f"num_directions must be >= 1, got "
+                             f"{num_directions}")
         self.mu = mu
         self.direction = direction
         self.lam = lam
@@ -204,8 +223,9 @@ class ZOExchange:
         self.dp = dp if (dp is not None and dp.enabled) else None
         if self.dp is not None and not self.dp.resolved:
             raise ValueError(
-                "DPConfig has a target epsilon but no noise_multiplier; the "
-                "port has no accountant yet, so set noise_multiplier")
+                "DPConfig has a target epsilon but no noise_multiplier: "
+                "calibrate it first via repro_torch.dp.accountant."
+                "resolve_dp(dp, rounds=...)")
 
     @classmethod
     def from_config(cls, vfl: VFLConfig,
@@ -272,15 +292,26 @@ class ZOExchange:
         return zoo.zo_coefficient(f_plus, f_base, self.mu)
 
     def party_gradient(self, w_m, key, f_base, f_of):
-        """The party-side estimate, plain or seed-replay. ``f_of(w_pert,
-        k_dir)`` evaluates the full objective at the perturbed block."""
-        if self.seed_replay:
+        """The party-side estimate: seed-replay or plain at K = 1, else the
+        mean over K directions. ``f_of(w_pert, k_dir)`` evaluates the full
+        objective at the perturbed block; ``k_dir`` is that direction's own
+        subkey (``split(key, K)``), so each of the K uploads draws its own
+        rounding and noise. ``f_base`` is the unperturbed value."""
+        K = self.num_directions
+        if K == 1 and self.seed_replay:
             w_p, _ = self.perturb(w_m, key)
             coeff = self.coefficient(f_of(w_p, key), f_base)
             return zoo.zo_gradient_from_seed(key, w_m, self.direction, coeff)
-        w_p, u = self.perturb(w_m, key)
-        coeff = self.coefficient(f_of(w_p, key), f_base)
-        return zoo.zo_gradient(u, coeff)
+        if K == 1:
+            w_p, u = self.perturb(w_m, key)
+            coeff = self.coefficient(f_of(w_p, key), f_base)
+            return zoo.zo_gradient(u, coeff)
+        coeffs, us = [], []
+        for k_dir in prng.split(key, K):
+            w_p, u = self.perturb(w_m, k_dir)
+            coeffs.append(self.coefficient(f_of(w_p, k_dir), f_base))
+            us.append(u)
+        return mean_over_directions(torch.stack(coeffs).float(), us)
 
     # ---- update apply (Algorithm 1 line 7 / Eq. 15) ----------------------
     def apply_block(self, stacked, m: int, g, lr: float):
@@ -319,7 +350,8 @@ class ZOExchange:
     # ---- accounting -------------------------------------------------------
     def round_comms(self, c) -> RoundComms:
         """Per-round transport for one party round with payload shaped
-        like ``c``: c and c_hat go up, h and h_bar come down."""
+        like ``c``: the base c plus one c_hat per direction go up, h plus
+        one h_bar per direction come down."""
         K = self.num_directions
         return RoundComms((1 + K) * self.codec.nbytes(c),
                           (1 + K) * SCALAR_BYTES)

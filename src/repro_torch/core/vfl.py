@@ -97,6 +97,26 @@ class VFLModel:
     def slice_features(self, x, m: int):
         raise NotImplementedError
 
+    def replace_party_output(self, cs, c_new, m: int):
+        """cs (B, q) with party m's column swapped for c_new."""
+        out = cs.clone()
+        out[:, m] = c_new.to(cs.dtype)
+        return out
+
+    def map_party_outputs(self, cs, fn):
+        """fn(c_m, m) on each party's column of the c table on its own: one
+        message per party, as the wire carries them (a codec sees one
+        party's upload at a time)."""
+        return torch.stack([fn(cs[:, m].contiguous(), m)
+                            for m in range(self.num_parties)], dim=1)
+
+    # batch adapters: what the parties and the server read of a batch
+    # (TransformerVFLModel overrides them)
+    def party_args(self, batch):
+        return batch["x"]
+
+    def server_args(self, batch):
+        return batch["y"]
 
     # --- conveniences -----------------------------------------------------
     def init_parties_stacked(self, key, device):
@@ -114,6 +134,14 @@ class VFLModel:
 
     def predict(self, w0, stacked_w, x):
         return self.server_predict(w0, self.all_party_outputs(stacked_w, x))
+
+    def full_loss(self, w0, stacked_w, x, y, lam: float):
+        """Centralized view of problem (P): F_0 on every party's c plus lam
+        times the parties' regularizers."""
+        cs = self.all_party_outputs(stacked_w, x)
+        reg = sum(self.regularizer(trees.tree_map(lambda a: a[m], stacked_w))
+                  for m in range(self.num_parties))
+        return self.server_forward(w0, cs, y) + lam * reg
 
 
 class PaperLRModel(VFLModel):

@@ -40,10 +40,12 @@ def zo_coefficient(f_plus, f_base, mu: float):
     the network in ZOO-VFL besides the function values themselves. A
     tensor divides by mu as a tensor on its own device: PyTorch's CUDA
     division by a Python scalar multiplies by the reciprocal, which is
-    not the reference's true division."""
+    not the reference's true division. The divisor is filled on the
+    device, so no host value is copied there (a copy waits for the
+    device)."""
     diff = f_plus - f_base
     if isinstance(diff, torch.Tensor):
-        return diff / torch.tensor(mu, dtype=diff.dtype, device=diff.device)
+        return diff / torch.full((), mu, dtype=diff.dtype, device=diff.device)
     return diff / mu
 
 

@@ -31,8 +31,9 @@ def noise_scale(dp: DPConfig) -> float:
     the Laplace ``b`` for laplace)."""
     if dp.noise_multiplier is None:
         raise ValueError(
-            "DPConfig.noise_multiplier is unresolved: the port has no "
-            "accountant yet, so set it explicitly")
+            "DPConfig.noise_multiplier is unresolved: calibrate it from the "
+            "target epsilon with repro_torch.dp.accountant.resolve_dp(dp, "
+            "rounds=...) before running")
     return float(dp.noise_multiplier) * float(dp.clip)
 
 
@@ -49,3 +50,4 @@ def defend_payload(c, key, dp: DPConfig):
     if dp.mechanism == "gaussian":
         return c + scale * prng.normal_from_bits(b)
     return c + scale * prng.laplace_from_bits(b)
+

@@ -68,7 +68,7 @@ def _encode_math(d, rnd_bits, codec: str):
     if codec != "int8":
         raise ValueError(f"no fused encode for codec {codec!r}")
     amax = torch.clamp(torch.max(torch.abs(d)), min=1e-12)
-    scale = amax / torch.tensor(127.0, device=d.device)
+    scale = amax / torch.full((), 127.0, device=d.device)
     x = d / scale
     if rnd_bits is not None:
         x = torch.floor(x + uniform_from_bits(rnd_bits))

@@ -14,23 +14,29 @@ same ``h`` per step within the tolerance of the float orders. It runs on
 the GPU unless ``--device cpu`` asks for the plain versions of the
 kernels.
 
+``--dp-epsilon E --dp-clip C [--dp-delta D]`` defends every up-link
+release with clip-then-noise, the noise multiplier calibrated by the RDP
+accountant (dp/accountant.py) for ``--steps`` rounds, as the reference's
+launcher does; its coherence rules are the reference's.
+
 The parser takes the reference's whole flag set. What the port does not
 run yet is refused with an error: ``--mode lm``, ``--transport tcp``,
-``--data-parallel``, ``--network``, ``--serve``, ``--dp-epsilon`` (no
-accountant yet), ``--ckpt-dir``/``--resume``, ``--trace`` and
-``--monitor``.
+``--data-parallel``, ``--network``, ``--serve``, ``--ckpt-dir``/``--resume``,
+``--trace`` and ``--monitor``.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs import VFLConfig, get_config
+from repro_torch.configs import DPConfig, VFLConfig, get_config
 from repro_torch.data.synthetic import make_lm_dataset
+from repro_torch.dp.accountant import resolve_dp
 from repro_torch.launch import steps as step_lib
 from repro_torch.models.model import build_model
 from repro_torch.utils import prng
@@ -112,8 +118,6 @@ def parse_args(argv=None):
         (args.data_parallel != 1, "--data-parallel"),
         (args.network is not None, "--network"),
         (args.serve is not None, "--serve"),
-        (args.dp_epsilon is not None, "--dp-epsilon (the port has no DP "
-         "accountant to calibrate the noise)"),
         (args.ckpt_dir is not None or args.resume, "--ckpt-dir/--resume"),
         (args.trace is not None or args.monitor, "--trace/--monitor"),
     ]
@@ -127,13 +131,32 @@ def parse_args(argv=None):
     if args.serve_batch is not None or args.serve_cache is not None:
         p.error("--serve-batch/--serve-cache size the serving engine; they "
                 "require --serve")
-    if args.dp_clip is not None or args.dp_delta is not None:
+    if args.dp_epsilon is not None:
+        if args.dp_epsilon <= 0:
+            p.error("--dp-epsilon must be > 0 (use 'inf' to disable)")
+        if math.isfinite(args.dp_epsilon) and args.dp_clip is None:
+            p.error("--dp-epsilon without --dp-clip is incoherent: the "
+                    "mechanism's sensitivity IS the clip bound")
+    elif args.dp_clip is not None or args.dp_delta is not None:
         p.error("--dp-clip/--dp-delta configure the DP mechanism; they "
                 "require --dp-epsilon")
     if args.schedule is not None or args.opt_state_dtype != "f32":
         p.error("--schedule/--opt-state-dtype configure the first-order lm "
                 "trainer; vfl-zoo keeps no Adam state")
+    if args.dp_delta is None:
+        args.dp_delta = 1e-5
     return args
+
+
+def make_dp(args):
+    """The run's DPConfig from the --dp-* flags (None when undefended),
+    its noise multiplier calibrated for ``--steps`` rounds, the
+    reference's budget (one activated party per step, so a conservative
+    upper bound on each party's releases)."""
+    if args.dp_epsilon is None:
+        return None
+    return resolve_dp(DPConfig(epsilon=args.dp_epsilon, delta=args.dp_delta,
+                               clip=args.dp_clip), rounds=args.steps)
 
 
 def make_batch_arrays(cfg, n, seq_len, seed, device):
@@ -178,9 +201,14 @@ def main(argv=None) -> dict:
     log = MetricLogger(f"train:{args.arch}:{args.mode}")
     n = max(64, args.batch_size * 8)
     data = make_batch_arrays(cfg, n, args.seq_len, args.seed, device)
+    dp = make_dp(args)
     vfl = VFLConfig(num_parties=args.parties, mu=args.mu, lr_party=args.lr,
-                    lr_server=args.lr / args.parties, fused=args.fused,
+                    lr_server=args.lr / args.parties, dp=dp, fused=args.fused,
                     codec=args.codec)
+    if dp is not None:
+        log.log(0, dp_epsilon=args.dp_epsilon,
+                dp_sigma=(dp.noise_multiplier
+                          if dp.noise_multiplier is not None else 0.0))
     _, init, step = step_lib.make_vfl_zoo_step(model, vfl)
     state = init(prng.key(args.seed), device)
     rng = np.random.default_rng(args.seed)

@@ -68,7 +68,13 @@ def key(seed: int) -> Key:
 
 def split(k: Key, n: int = 2) -> list:
     """== jax.random.split(k, n), as a list of n keys."""
-    return [_threefry2x32(k[0], k[1], i >> 32, i & _M32) for i in range(n)]
+    return [split_at(k, i) for i in range(n)]
+
+
+def split_at(k: Key, i: int) -> Key:
+    """== jax.random.split(k, n)[i] for any n > i, without the other n - 1
+    keys."""
+    return _threefry2x32(k[0], k[1], i >> 32, i & _M32)
 
 
 def fold_in(k: Key, data: int) -> Key:
@@ -202,9 +208,10 @@ def sample_direction(k: Key, shape, dist: str, device) -> torch.Tensor:
 
 
 # ------------------------------------------- discrete draws (asyrevel_step) --
-# Both are jax 0.9.0's formulas on the bits of the same key; the draws are
-# a handful of values, so they run on the host (CPU tensors) and return
-# Python ints.
+# Both are jax 0.9.0's formulas on the bits of the same key. The step's
+# party and delays are a handful of values, drawn on the host (CPU
+# tensors) as Python ints; ``randint_on`` draws a minibatch's indices on
+# the device the data lives on.
 
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
@@ -228,22 +235,30 @@ def categorical(k: Key, logits: torch.Tensor) -> int:
     return int(torch.argmax(gumbel(k, logits.shape) + logits))
 
 
-def randint(k: Key, shape, minval: int, maxval: int) -> list:
-    """== jax.random.randint(k, shape, minval, maxval) (int32), flattened
-    to a list of Python ints: two uint32 streams from split(k), each
+def randint_on(k: Key, shape, minval: int, maxval: int,
+               device) -> torch.Tensor:
+    """== jax.random.randint(k, shape, minval, maxval) as an int64 tensor
+    on ``device``: two uint32 streams from split(k) (on a CUDA device two
+    draw-kernel launches; nothing crosses to or from the host), each
     reduced mod span, combined as (hi % span) * (2^32 % span) + lo % span
-    in wrapping uint32 arithmetic, then mod span again."""
+    in wrapping uint32 arithmetic, mod span again, then wrapped to int32."""
     if not -(1 << 31) <= minval < (1 << 31) or \
             not -(1 << 31) <= maxval < (1 << 31):
         raise ValueError("randint bounds must fit int32")
     k1, k2 = split(k)
     shape = tuple(int(s) for s in shape)
-    hi = bits(k1, shape, "cpu").reshape(-1).to(torch.int64) & _M32
-    lo = bits(k2, shape, "cpu").reshape(-1).to(torch.int64) & _M32
+    hi = bits(k1, shape, device).to(torch.int64) & _M32
+    lo = bits(k2, shape, device).to(torch.int64) & _M32
     span = (maxval - minval) & _M32 if maxval > minval else 1
     m16 = (1 << 16) % span
     mult = ((m16 * m16) & _M32) % span       # the square wraps in uint32
     off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
     off = off % span
-    return [((minval + int(o)) + (1 << 31)) % (1 << 32) - (1 << 31)
-            for o in off]
+    return (minval + off + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def randint(k: Key, shape, minval: int, maxval: int) -> list:
+    """== jax.random.randint(k, shape, minval, maxval) (int32), flattened
+    to a list of Python ints, drawn on the host: the plain version of
+    ``randint_on`` on a CUDA device."""
+    return randint_on(k, shape, minval, maxval, "cpu").reshape(-1).tolist()

@@ -448,3 +448,113 @@ def test_reduced_bf16_vfl_zoo_steps_on_the_card_match_the_cpu(cuda):
     on_card, on_cpu = _reduced_bf16_h(cuda), _reduced_bf16_h("cpu")
     gaps = [abs(a - b) for a, b in zip(on_card, on_cpu)]
     assert gaps[0] < 2e-3 and max(gaps) < 5e-2
+
+
+# ------------------------------------- scan trainer and K-direction round --
+
+def _small_fcn(q=2, d=32, n=256):
+    from repro_torch.configs import PaperFCNConfig
+    from repro_torch.core.vfl import PaperFCNModel
+    rng = np.random.default_rng(0)
+    X = rng.random((n, d)).astype(np.float32)
+    y = rng.integers(0, 10, n).astype(np.int32)
+    model = PaperFCNModel(PaperFCNConfig(num_features=d, num_parties=q,
+                                         party_hidden=16))
+    return model, X, y
+
+
+def _defended(q, K, fused):
+    from repro_torch.configs import VFLConfig
+    return VFLConfig(num_parties=q, direction="rademacher", mu=5e-2,
+                     lr_party=2e-2, lr_server=1e-2, codec="int8",
+                     dp=DPConfig(noise_multiplier=1.3, clip=1.0),
+                     fused=fused, num_directions=K)
+
+
+def _launch_counts():
+    return (fused_round.defended_encode.launches,
+            zo_update.zo_update.launches, dual_matmul.dual_matmul.launches,
+            prng_draw.draw.launches)
+
+
+@pytest.mark.parametrize("algorithm", ["asyrevel", "synrevel"])
+def test_scan_fused_k_directions_bitwise_unfused_with_exact_launches(
+        cuda, algorithm):
+    """train with K = 3 on the defended FCN: per step the fused run makes
+    q + P*K defended_encode launches (the stale c's and the c_hat's, P the
+    perturbing parties: 1 or q) and a draw and a zo_update for each of the
+    P*K*4 + 2 perturbed leaves; the unfused run draws those leaves'
+    directions and two bit streams per release. Both draw each step's
+    batch indices as two bit streams. Fused losses and state are bitwise
+    the unfused run's."""
+    from repro_torch.core import asyrevel
+    from repro_torch.utils import trees
+    q, K, steps = 2, 3, 4
+    P = 1 if algorithm == "asyrevel" else q
+    leaves, releases = P * K * 4 + 2, q + P * K
+    model, X, y = _small_fcn(q)
+    runs = {}
+    for fused in (True, False):
+        n0 = _launch_counts()
+        state, h = asyrevel.train(model, _defended(q, K, fused),
+                                  {"x": X, "y": y}, prng.key(1), steps, 16,
+                                  algorithm=algorithm)
+        torch.cuda.synchronize()
+        got = tuple(b - a for a, b in zip(n0, _launch_counts()))
+        init = 2 * q + 1                 # each party's w1, w2; the server's w
+        want = ((steps * releases, steps * leaves, 0,
+                 steps * (leaves + 2) + init) if fused else
+                (0, 0, 0, steps * (leaves + 2 * releases + 2) + init))
+        assert got == want
+        assert bool(torch.isfinite(h).all())
+        runs[fused] = (state, h)
+    (sf, hf), (su, hu) = runs[True], runs[False]
+    assert _same_bits(hf, hu)
+    for a, b in ((sf.w0, su.w0), (sf.parties, su.parties),
+                 (sf.hist, su.hist)):
+        assert all(_same_bits(x, z) for x, z in zip(trees.leaves(a),
+                                                    trees.leaves(b)))
+
+
+def test_host_round_k_directions_fused_bitwise_unfused(cuda):
+    """run_serial with K = 3: a dual_matmul per direction, 1 + K
+    defended_encode launches a fused round, fused bitwise unfused."""
+    from repro_torch.core.async_host import HostAsyncTrainer
+    q, K, rounds = 2, 3, 3
+    model, X, y = _small_fcn(q)
+    out = {}
+    for fused in (True, False):
+        tr = HostAsyncTrainer(model, _defended(q, K, fused), X, y,
+                              batch_size=16, seed=0, compute_cost_s=0.0)
+        n0 = _launch_counts()
+        res = tr.run_serial(rounds)
+        got = tuple(b - a for a, b in zip(n0, _launch_counts()))
+        updates, leaves = rounds * q, K * 4 + 2
+        assert got == ((updates * (1 + K), updates * leaves, updates * K,
+                        updates * leaves) if fused else
+                       (0, 0, updates * K, updates * (leaves + 2 * (1 + K))))
+        assert (res.bytes_up, res.bytes_down) == (
+            updates * (1 + K) * (16 + 4), updates * (1 + K) * 4)
+        out[fused] = (tr, [h for _, h in res.history])
+    (tf, hf), (tu, hu) = out[True], out[False]
+    assert hf == hu
+    for m in range(q):
+        assert all(_same_bits(tf.party_w[m][k], tu.party_w[m][k])
+                   for k in tf.party_w[m])
+    assert all(_same_bits(tf.server.w0[k], tu.server.w0[k])
+               for k in tf.server.w0)
+
+
+@pytest.mark.parametrize("shape,minval,maxval", [
+    ((2048,), 0, 60_000), ((64,), 0, 300), ((9,), -5, 7), ((1,), 0, 1)])
+def test_randint_on_the_card_bitwise_the_host_draw(cuda, shape, minval,
+                                                   maxval):
+    """randint_on, two draw-kernel launches and int64 ops on the card,
+    gives exactly the host's randint (the plain version)."""
+    k = prng.fold_in(prng.key(3), 7)
+    n0 = prng_draw.draw.launches
+    got = prng.randint_on(k, shape, minval, maxval, cuda)
+    assert prng_draw.draw.launches - n0 == 2
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert got.cpu().reshape(-1).tolist() == prng.randint(k, shape, minval,
+                                                          maxval)

@@ -71,8 +71,7 @@ def test_launcher_needs_a_gpu_unless_asked_for_the_cpu():
 
 @pytest.mark.parametrize("extra", [
     ["--mode", "lm"], ["--transport", "tcp"], ["--data-parallel", "2"],
-    ["--network", "wan"], ["--serve", "4"], ["--dp-epsilon", "8",
-                                             "--dp-clip", "1"],
+    ["--network", "wan"], ["--serve", "4"],
     ["--ckpt-dir", "ckpt"], ["--trace", "tr"], ["--trace", "tr",
                                                 "--monitor"],
     ["--dropout-at", "2"], ["--dp-clip", "1"]],
