@@ -75,7 +75,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    split of 2 more steps (direction draws, server forwards, party towers,
    up-link, rest), then a reduced run on the card against the CPU (3
    steps, h within 1e-3 in f32; in bf16 the first h within 2e-3 and the
-   rest within 5e-2).
+   rest within 5e-2), and the reduced run's 2 steps plus 2 resumed from
+   its ``--ckpt-dir`` checkpoint bitwise equal to 4 straight steps.
 5. Async: the paper's Section 5.1 experiment (examples/federated_fcn_mnist.py)
    on the threaded executors: D7 at scale 0.01, q = 8, batch 64, uniform
    directions, 1 ms simulated compute per party round, party 3 a 1.4x
@@ -98,7 +99,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the card against the CPU (D7 at scale 0.01, batch 64, 20 asyrevel
    steps at K = 2, fused f32 + DP: losses within 1e-3) and
    examples/quickstart_torch.py on the card (4000 steps: train acc > 0.8).
-7. The ``{"kernels": [...]}`` line, the card line, and last
+7. Runtime: the multi-process TCP federation (``runtime.run_federation``)
+   on the defended D7 FCN of phase 3 at full width (n = 60000, batch 2048,
+   5 rounds a party), the server and the 8 parties as 9 OS processes on
+   the one card: (a) the serial schedule, losses, every party's final
+   params and w0 bitwise equal to ``run_reference`` in this process, bytes
+   and messages by kind equal, c_up exactly rounds·q·(2048 + 4) bytes,
+   socket bytes above payload bytes; (b) party 3 crashes at round 2 and
+   rejoins from its checkpoint, bitwise equal to (a), one rejoin and one
+   disconnect; (c) the arrival schedule with tau = 1 and party 7 stalling
+   0.2 s a send: rounds parked, no admitted round staler than 1, every
+   round processed, finite losses. Every process reports its device (the
+   card) and its launch counts, exact against ``runtime_launches``; the
+   parent launches nothing during a federation, and no process is left
+   alive after one. Host-clock ms per party update of (a) and (c) beside
+   the in-process ``run_serial``'s.
+8. The ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
@@ -910,22 +926,15 @@ def fcn_init_draws(q):
     return 2 * q + 1
 
 
-def _counters():
-    from repro_torch.kernels import fused_round, ops, prng_draw, zo_update
-    return {"defended_encode": fused_round.defended_encode,
-            "zo_update": zo_update.zo_update,
-            "dual_matmul": ops.dual_matmul,
-            "flash_attention": ops.flash_attention,
-            "prng_draw": prng_draw.draw}
-
-
 def zero_launches():
-    for fn in _counters().values():
+    from repro_torch.kernels import ops
+    for fn in ops.launch_counters().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    from repro_torch.kernels.ops import launch_counts
+    return launch_counts()
 
 
 # ------------------------------------------------------------- async phase --
@@ -1220,6 +1229,263 @@ def scan_phase(dev):
     return stats
 
 
+# ------------------------------------------------------------ runtime phase --
+
+# the main path's D7 FCN at full width as a runtime spec: the settings of
+# d7_config(fused=True, dp=True) (asserted in runtime_phase)
+RUNTIME_SPEC = {"kind": "fcn", "parties": 8, "features": 784, "classes": 10,
+                "samples": 60000, "batch": 2048, "seed": 0,
+                "vfl": {"direction": "rademacher", "mu": 5e-2,
+                        "lr_party": 2e-2, "lr_server": 1e-2, "codec": "int8",
+                        "fused": True,
+                        "dp": {"noise_multiplier": 1.3, "clip": 1.0}}}
+RUNTIME_ROUNDS = 5
+# launches of one defended D7 party round in a party process (c and c_hat
+# encoded from their keys, a draw and a zo_update for each of the 4
+# perturbed leaves, the two tower evaluations in one dual_matmul), and of
+# one update in the server process (a draw and a zo_update for each of
+# its 2 perturbed leaves)
+RUNTIME_PARTY_ROUND = {"defended_encode": 2, "zo_update": 4,
+                       "dual_matmul": 1, "flash_attention": 0, "prng_draw": 4}
+RUNTIME_SERVER_UPDATE = {"defended_encode": 0, "zo_update": 2,
+                         "dual_matmul": 0, "flash_attention": 0,
+                         "prng_draw": 2}
+# draws every process makes before its first round: the data (X a normal
+# draw, the FCN's labels a randint of two bit streams), then its initial
+# weights (a party's w1 and w2, the server's w)
+RUNTIME_DATA_DRAWS = 3
+RUNTIME_INIT_DRAWS = {"party": 2, "server": 1}
+
+
+def runtime_launches(role, units):
+    """Exact launches of one runtime process: ``units`` party rounds or
+    server updates, plus the data and initial-weight draws."""
+    per = RUNTIME_PARTY_ROUND if role == "party" else RUNTIME_SERVER_UPDATE
+    want = {name: n * units for name, n in per.items()}
+    want["prng_draw"] += RUNTIME_DATA_DRAWS + RUNTIME_INIT_DRAWS[role]
+    return want
+
+
+def _no_orphans(res, what, crashed=()):
+    """Every process of the federation exited by itself: none is alive,
+    each scripted crasher's first process exited with CRASH_EXIT_CODE and
+    every other process with 0."""
+    import multiprocessing
+    import os
+    from repro_torch.runtime import CRASH_EXIT_CODE
+    alive = [p.pid for p in multiprocessing.active_children()] + [
+        pid for pid in res["pids"] if os.path.exists(f"/proc/{pid}")]
+    if alive:
+        raise AssertionError(f"runtime {what}: processes still alive {alive}")
+    want, seen = [], set()
+    for name, _ in res["exitcodes"]:
+        first_crash = name in crashed and name not in seen
+        seen.add(name)
+        want.append((name, CRASH_EXIT_CODE if first_crash else 0))
+    if list(res["exitcodes"]) != want:
+        raise AssertionError(f"runtime {what}: exit codes "
+                             f"{res['exitcodes']}, want {want}")
+
+
+def runtime_phase(dev, spec=RUNTIME_SPEC, rounds=RUNTIME_ROUNDS):
+    """The multi-process TCP federation runtime on the defended D7 FCN:
+    q + 1 OS processes on the one card. (a) serial, bitwise equal to
+    ``run_reference`` in this process (losses, final params, bytes and
+    messages by kind); (b) party 3 crashes at round 2 and rejoins from its
+    checkpoint, bitwise equal to (a); (c) the arrival schedule with tau = 1
+    and party 7 stalling 0.2 s a send. Every process reports its device
+    and its launches, which must be exact (``runtime_launches``); the
+    checks of launches come last, after all three runs."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import DPConfig, RuntimeConfig, VFLConfig
+    from repro_torch.core.wire import RecordingChannel
+    from repro_torch.runtime import (FailurePlan, PartyFault, history_losses,
+                                     ms_per_update, run_federation,
+                                     run_reference, serial_levels)
+
+    q, batch = spec["parties"], spec["batch"]
+    vfl_kw = dict(spec["vfl"])
+    dp = DPConfig(**vfl_kw.pop("dp"))
+    if spec is RUNTIME_SPEC and \
+            VFLConfig(num_parties=q, dp=dp, **vfl_kw) != d7_config(True, True):
+        raise AssertionError("RUNTIME_SPEC differs from d7_config")
+    cfg = RuntimeConfig(deadline_s=900.0)
+    stats, launch_checks = {}, []
+
+    def finals_equal(a, b, what):
+        for m in range(q):
+            for k, v in a["parties"][m]["final_w"].items():
+                if not np.array_equal(v.view(np.int32),
+                                      b["parties"][m]["final_w"][k]
+                                      .view(np.int32)):
+                    raise AssertionError(f"runtime {what}: party {m} {k}")
+        for k, v in a["server"]["w0"].items():
+            if not np.array_equal(v.view(np.int32),
+                                  b["server"]["w0"][k].view(np.int32)):
+                raise AssertionError(f"runtime {what}: server {k}")
+
+    def devices(res, what):
+        got = {res["server"]["device"]} | {p["device"] for p in
+                                          res["parties"].values()}
+        if {d.split(":")[0] for d in got} != {dev.type}:
+            raise AssertionError(f"runtime {what}: devices {got}")
+
+    def split(res):
+        """Host ms past start-up, as ``ms_per_update`` counts it: per update
+        of the server's dispatcher after the slowest party's first round
+        (waiting for a complete round, processing one), and per round of
+        the parties from their second on (prepare, send and wait for the
+        reply, apply; the mean over parties and rounds)."""
+        srv = res["server"]
+        warm = sum(t <= srv["levels"][0][1] for t, _ in srv["history"])
+        waits = srv["dispatch_s"][warm:]
+        out = {"server_wait": 1e3 * sum(w for w, _ in waits) / len(waits),
+               "server_process": 1e3 * sum(p for _, p in waits)
+               / len(waits)}
+        rows = [r for p in res["parties"].values() for r in p["round_s"][1:]]
+        for i, k in enumerate(("prepare", "wait", "apply")):
+            out[f"party_{k}"] = 1e3 * sum(r[i] for r in rows) / len(rows)
+        return out
+
+    def run(what, crashed=(), **kw):
+        zero_launches()
+        t0 = time.perf_counter()
+        res = run_federation(spec, rounds, cfg=kw.pop("cfg", cfg),
+                             device=dev, **kw)
+        wall = time.perf_counter() - t0
+        parent = read_launches()
+        _no_orphans(res, what, crashed)
+        devices(res, what)
+        if any(parent.values()):
+            raise AssertionError(f"runtime {what}: the parent launched "
+                                 f"{parent}")
+        return res, wall
+
+    # (a) serial TCP against the in-process reference on the card
+    res_a, wall_a = run("serial", channel_kind="recording")
+    rec = RecordingChannel()
+    tr, ref = run_reference(spec, rounds, channel=rec, device=dev)
+    h_a = history_losses(res_a)
+    if not np.array_equal(h_a, np.asarray([h for _, h in ref.history])):
+        raise AssertionError("runtime serial: losses != run_reference")
+    ref_like = {"parties": {m: {"final_w": {k: v.cpu().numpy() for k, v in
+                                            tr.party_w[m].items()}}
+                            for m in range(q)},
+                "server": {"w0": {k: v.cpu().numpy()
+                                  for k, v in tr.server.w0.items()}}}
+    finals_equal(res_a, ref_like, "serial vs run_reference")
+    srv = res_a["server"]
+    if srv["bytes_by_kind"] != dict(rec.bytes_by_kind) or \
+            srv["msgs_by_kind"] != dict(rec.msgs_by_kind):
+        raise AssertionError(f"runtime serial: bytes {srv['bytes_by_kind']} "
+                             f"msgs {srv['msgs_by_kind']} != "
+                             f"{dict(rec.bytes_by_kind)} "
+                             f"{dict(rec.msgs_by_kind)}")
+    c_up = rounds * q * (batch + 4)
+    payload = sum(srv["bytes_by_kind"].values())
+    socket_bytes = srv["socket_bytes_in"] + srv["socket_bytes_out"]
+    if srv["bytes_by_kind"]["c_up"] != c_up or not socket_bytes > payload:
+        raise AssertionError(f"runtime serial: c_up "
+                             f"{srv['bytes_by_kind']['c_up']} != {c_up} or "
+                             f"socket {socket_bytes} <= payload {payload}")
+    if srv["levels"] != serial_levels(srv["history"], q):
+        raise AssertionError(f"runtime serial: levels {srv['levels']}")
+    ms_a = ms_per_update(srv["levels"], q)
+    ms_ref = ms_per_update(serial_levels(ref.history, q), q)
+    updates = rounds * q
+    log(f"[runtime] serial: {q + 1} processes on {srv['device']}, {updates} "
+        f"updates, {wall_a:.2f} s with start-up; {ms_a:.3f} ms per party "
+        f"update (in-process run_serial {ms_ref:.3f}); losses {h_a[0]:.4f} "
+        f"-> {h_a[-1]:.4f} and final params bitwise run_reference; payload "
+        f"{payload} B ({srv['bytes_by_kind']}), socket {socket_bytes} B")
+    split_a = split(res_a)
+    log(f"[runtime] serial split, host ms: {json.dumps(split_a)}")
+    launch_checks.append(("serial", res_a, {m: rounds for m in range(q)}))
+    stats["serial"] = {"ms_per_update": ms_a, "inprocess_ms_per_update":
+                       ms_ref, "split_ms": split_a, "wall_s": wall_a,
+                       "payload_bytes": payload,
+                       "socket_bytes": socket_bytes,
+                       "socket_bytes_per_update": socket_bytes / updates,
+                       "launches_server": srv["launches"],
+                       "launches_party0": res_a["parties"][0]["launches"]}
+
+    # (b) party 3 crashes at round 2 and rejoins from its checkpoint
+    crash_at = 2
+    with tempfile.TemporaryDirectory() as root:
+        res_b, wall_b = run("crash", crashed=("fed-party3",),
+                            ckpt_root=root, plan=FailurePlan(
+            {3: PartyFault(crash_at_round=crash_at, rejoin_delay_s=0.5)}))
+    if (res_b["rejoins"], res_b["server"]["disconnects"]) != (1, 1):
+        raise AssertionError(f"runtime crash: rejoins {res_b['rejoins']} "
+                             f"disconnects {res_b['server']['disconnects']}")
+    if not np.array_equal(history_losses(res_b), h_a):
+        raise AssertionError("runtime crash: losses != the serial run's")
+    finals_equal(res_b, res_a, "crash vs serial")
+    if res_b["server"]["bytes_by_kind"] != srv["bytes_by_kind"]:
+        raise AssertionError("runtime crash: bytes != the serial run's")
+    log(f"[runtime] crash of party 3 at round {crash_at}: rejoins 1, "
+        f"disconnects 1, {wall_b:.2f} s; losses and final params bitwise "
+        "the serial run's")
+    # the respawned party counts its own rounds, from its checkpoint on
+    launch_checks.append(("crash", res_b, {m: rounds if m != 3 else
+                                           rounds - crash_at
+                                           for m in range(q)}))
+    stats["crash"] = {"wall_s": wall_b, "rejoins": res_b["rejoins"]}
+
+    # (c) the arrival schedule, tau = 1, party 7 a straggler
+    res_c, wall_c = run("arrival", cfg=RuntimeConfig(
+        deadline_s=900.0, schedule="arrival", max_staleness=1),
+        plan=FailurePlan({q - 1: PartyFault(slow_send_s=0.2)}))
+    src = res_c["server"]
+    h_c = history_losses(res_c)
+    if not (src["parked"] > 0 and src["staleness_max"] <= 1
+            and src["processed"] == [rounds] * q
+            and len(h_c) == updates and np.isfinite(h_c).all()):
+        raise AssertionError(f"runtime arrival: parked {src['parked']}, "
+                             f"staleness {src['staleness_max']}, processed "
+                             f"{src['processed']}, losses {h_c}")
+    if [k for k, _ in src["levels"]] != list(range(1, rounds + 1)):
+        raise AssertionError(f"runtime arrival: levels {src['levels']}")
+    ms_c = ms_per_update(src["levels"], q)
+    log(f"[runtime] arrival, tau 1, party {q - 1} stalls 0.2 s a send: "
+        f"{ms_c:.3f} ms per party update (the slowest party's rounds 2 to "
+        f"{rounds}), parked {src['parked']}, max staleness "
+        f"{src['staleness_max']}, {wall_c:.2f} s")
+    split_c = split(res_c)
+    log(f"[runtime] arrival split, host ms: {json.dumps(split_c)}")
+    launch_checks.append(("arrival", res_c, {m: rounds for m in range(q)}))
+    stats["arrival"] = {"ms_per_update": ms_c, "split_ms": split_c,
+                        "levels": src["levels"],
+                        "wall_s": wall_c,
+                        "parked": src["parked"],
+                        "staleness_max": src["staleness_max"]}
+
+    for what, res, party_rounds in launch_checks:
+        got = res["server"]["launches"]
+        want = runtime_launches("server", res["server"]["updates"])
+        if got != want:
+            raise AssertionError(f"runtime {what}: server launches {got}, "
+                                 f"want {want}")
+        for m, n in party_rounds.items():
+            got = res["parties"][m]["launches"]
+            if got != runtime_launches("party", n):
+                raise AssertionError(f"runtime {what}: party {m} launches "
+                                     f"{got}, want "
+                                     f"{runtime_launches('party', n)}")
+    log("[runtime] launches exact in every process of the three runs: a "
+        f"party round {RUNTIME_PARTY_ROUND}, a server update "
+        f"{RUNTIME_SERVER_UPDATE}, plus {RUNTIME_DATA_DRAWS} data draws and "
+        f"the initial weights' {RUNTIME_INIT_DRAWS}")
+    stats["launches_total"] = {
+        name: sum(r["server"]["launches"][name]
+                  + sum(p["launches"][name] for p in r["parties"].values())
+                  for _, r, _ in launch_checks)
+        for name in RUNTIME_PARTY_ROUND}
+    return stats
+
+
 # ------------------------------------------------------------ vfl-zoo phase --
 
 ZOO_STEPS = 5
@@ -1300,6 +1566,7 @@ def zoo_phase(dev):
         raise AssertionError(f"vfl-zoo card vs CPU losses differ by {gap}")
     log(f"[zoo] card vs CPU, reduced qwen1.5-0.5b, 3 steps: max h gap "
         f"{gap:.3g}")
+    zoo_resume_check()
     # the same in bf16, the full-size run's dtype: the first h is one
     # forward (roundings moved by another matmul order or an expf an ulp
     # off spread through the layers, within 2e-3); later h's follow ZO
@@ -1318,6 +1585,36 @@ def zoo_phase(dev):
                       "setup_s": res["setup_s"], "peak_gb": peak_gb,
                       "split_s": split, "card_vs_cpu_gap": gap,
                       "card_vs_cpu_bf16_gaps": gaps16}
+
+
+def zoo_resume_check():
+    """The reduced vfl-zoo run on the card: 2 steps with ``--ckpt-dir``,
+    then ``--resume`` for 2 more, bitwise 4 straight steps (h and the
+    saved state: w0, the party blocks and the delay ring buffer)."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.launch import train
+
+    argv = ["--arch", "qwen1.5-0.5b", "--mode", "vfl-zoo", "--reduced",
+            "--parties", "4", "--batch-size", "4", "--seq-len", "128",
+            "--fused", "--codec", "int8", "--lr", "1e-2", "--log-every",
+            "100"]
+    with tempfile.TemporaryDirectory() as root:
+        a, c = f"{root}/a", f"{root}/c"
+        h = train.main(argv + ["--steps", "2", "--ckpt-dir", a])["h"]
+        h += train.main(argv + ["--steps", "2", "--ckpt-dir", a,
+                                "--resume"])["h"]
+        straight = train.main(argv + ["--steps", "4", "--ckpt-dir", c])["h"]
+        with np.load(f"{a}/step_00000004.npz") as x, \
+                np.load(f"{c}/step_00000004.npz") as y:
+            same = sorted(x.files) == sorted(y.files) and all(
+                np.array_equal(x[k], y[k]) for k in x.files)
+    if h != straight or not same:
+        raise AssertionError(f"vfl-zoo 2 + 2 resumed steps {h} != 4 "
+                             f"straight {straight} (state equal: {same})")
+    log(f"[zoo] reduced run on the card, 2 steps + 2 resumed from the "
+        f"checkpoint: bitwise 4 straight steps, h {h}")
 
 
 def reduced_bf16_steps(device, steps=3):
@@ -1641,6 +1938,7 @@ def main() -> int:
     launches["flash_attention"] = zoo_launches["flash_attention"]
     log(json.dumps({"async": async_phase(dev)}))
     log(json.dumps({"scan": scan_phase(dev)}))
+    log(json.dumps({"runtime": runtime_phase(dev)}))
 
     sources = {
         "defended_encode": ("src/repro_torch/kernels/csrc/defended_encode.cu",

@@ -4,7 +4,8 @@ copied from the reference's configs/base.py with the same fields,
 defaults, validation and ``enabled``/``resolved`` semantics.
 ``ModelConfig`` keeps the fields the dense family reads; the fields of the
 moe, ssm, hybrid, vlm and audio families, of serving and of remat are
-not ported yet. ``dp/accountant.py`` calibrates ``DPConfig.noise_multiplier``
+not ported yet. ``RuntimeConfig`` holds the TCP federation runtime's
+knobs. ``dp/accountant.py`` calibrates ``DPConfig.noise_multiplier``
 from a target epsilon.
 """
 from __future__ import annotations
@@ -223,3 +224,48 @@ NETWORK_PROFILES = {
     # network property instead of a compute multiplier)
     "straggler": NetworkConfig("straggler", party_scale=(6.0,)),
 }
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Knobs of the multi-process TCP federation runtime (runtime/), the
+    reference's fields and defaults.
+
+    ``schedule`` picks the server's dispatch order: 'serial' processes
+    party rounds in strict round-robin (the deterministic reference,
+    bitwise ``HostAsyncTrainer.run_serial``), 'arrival' processes complete
+    rounds in the order they arrive off the sockets (AsyREVEL: fast
+    parties never wait for stragglers). ``max_staleness`` enforces the
+    paper's tau (Assumption 4) on 'arrival': a round more than tau rounds
+    ahead of the slowest party is parked until the laggard catches up
+    (None = off). ``trace_dir`` and ``monitor`` are the reference's trace
+    capture and live health plane; the port's runtime refuses them until
+    its tracing is ported.
+    """
+    host: str = "127.0.0.1"       # internal-only: loopback federation;
+    #                               launch/train.py spawns all processes
+    port: int = 0                 # internal-only: 0 = OS-assigned
+    #                               (reported to parties via the port queue)
+    schedule: str = "serial"      # internal-only: serial | arrival dispatch
+    #                               order (runtime tests set it directly)
+    max_staleness: Optional[int] = None   # internal-only: tau (Assumption
+    #                               4); None = off; test knob
+    request_timeout_s: float = 15.0   # internal-only: per recv on an open
+    #                               connection
+    max_retries: int = 4          # internal-only: reply waits before a
+    #                               party gives up
+    connect_retries: int = 60     # internal-only: dial attempts (server
+    #                               may start late)
+    connect_backoff_s: float = 0.25   # internal-only: dial backoff seconds
+    heartbeat_s: float = 2.0      # internal-only: party pings when a reply
+    #                               is this late
+    ckpt_every: int = 1           # internal-only: checkpoint cadence in
+    #                               rounds; --ckpt-dir turns persistence on
+    compute_cost_s: float = 0.0   # internal-only: simulated local compute
+    #                               per round
+    deadline_s: float = 300.0     # internal-only: hard wall for the whole
+    #                               federation, derived from --steps
+    trace_dir: Optional[str] = None   # flag: --trace — refused by the
+    #                               port's runtime (tracing not ported)
+    monitor: bool = False         # flag: --monitor — refused by the port's
+    #                               runtime (tracing not ported)

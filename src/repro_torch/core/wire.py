@@ -219,6 +219,15 @@ class Channel:
             time.sleep(t)
         return msg
 
+    def observe(self, msg: Message) -> Message:
+        """Pass a message RECEIVED from a real transport through this
+        channel stack. In the single-process executors one channel sees
+        both directions of every link; in the multi-process runtime
+        (runtime/) each endpoint owns its own stack and routes what it
+        reads off its sockets through here, so the endpoint's counters and
+        transcript match the single-channel view of its links exactly."""
+        return self.send(msg)
+
 
 class InMemoryChannel(Channel):
     """Free, instant transport."""

@@ -5,6 +5,9 @@
       --fused --codec int8                          # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --mode vfl-zoo --reduced --steps 12 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+      --mode vfl-zoo --transport tcp --parties 3 --steps 5 --dropout-at 2 \
+      --ckpt-dir DIR                                # then --steps 8 --resume
 
 Mode ``vfl-zoo``: the paper's AsyREVEL black-box VFL training of a dense
 architecture (the server model F_0) fed by q parties' private embedding
@@ -12,17 +15,27 @@ slices, as the reference's ``repro.launch.train --mode vfl-zoo`` runs it
 in memory: the same data, the same batch draws, the same keys, so the
 same ``h`` per step within the tolerance of the float orders. It runs on
 the GPU unless ``--device cpu`` asks for the plain versions of the
-kernels.
+kernels. ``--ckpt-dir`` saves the whole AsyREVEL state after the run (w0,
+the party blocks and the delay ring buffer); ``--resume`` restores the
+latest one, continues the step count and fast-forwards the batch stream,
+so 2 steps and a resumed 2 are 4 straight steps.
+
+``--transport tcp`` runs the multi-process federation runtime
+(runtime/): the server and each party as OS processes over TCP, on the
+paper's LR problem with ``d_model`` features, as the reference's
+launcher does; ``--dropout-at R`` crashes party 0 at round R (it rejoins
+from its checkpoint), ``--straggler-s S`` stalls the last party's
+uploads, and ``--ckpt-dir``/``--resume`` checkpoint and resume every
+process. ``--steps`` is then the per-party round budget.
 
 ``--dp-epsilon E --dp-clip C [--dp-delta D]`` defends every up-link
 release with clip-then-noise, the noise multiplier calibrated by the RDP
 accountant (dp/accountant.py) for ``--steps`` rounds, as the reference's
-launcher does; its coherence rules are the reference's.
+launcher does. The coherence rules of the flags are the reference's.
 
 The parser takes the reference's whole flag set. What the port does not
-run yet is refused with an error: ``--mode lm``, ``--transport tcp``,
-``--data-parallel``, ``--network``, ``--serve``, ``--ckpt-dir``/``--resume``,
-``--trace`` and ``--monitor``.
+run yet is refused with an error: ``--mode lm``, ``--data-parallel``,
+``--network``, ``--serve``, ``--trace`` and ``--monitor``.
 """
 from __future__ import annotations
 
@@ -34,6 +47,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.configs import DPConfig, VFLConfig, get_config
 from repro_torch.data.synthetic import make_lm_dataset
 from repro_torch.dp.accountant import resolve_dp
@@ -111,26 +126,40 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     args = p.parse_args(argv)
 
-    refused = [
-        (args.mode != "vfl-zoo", f"--mode {args.mode} (first-order Adam "
-         "needs a backward pass)"),
-        (args.transport != "memory", "--transport tcp"),
-        (args.data_parallel != 1, "--data-parallel"),
-        (args.network is not None, "--network"),
-        (args.serve is not None, "--serve"),
-        (args.ckpt_dir is not None or args.resume, "--ckpt-dir/--resume"),
-        (args.trace is not None or args.monitor, "--trace/--monitor"),
-    ]
-    for hit, what in refused:
-        if hit:
-            p.error(f"{what} {NOT_PORTED}")
-    # the reference's own coherence rules for what remains
-    if args.dropout_at is not None or args.straggler_s is not None:
-        p.error("--dropout-at/--straggler-s script faults of the tcp "
-                "transport; they require --transport tcp")
-    if args.serve_batch is not None or args.serve_cache is not None:
+    # the reference's coherence rules, then what the port does not run
+    if args.transport == "tcp":
+        if args.mode != "vfl-zoo":
+            p.error("--transport tcp runs the federated protocol; it "
+                    "requires --mode vfl-zoo")
+        if args.data_parallel > 1:
+            p.error("--transport tcp runs parties as separate OS processes; "
+                    "--data-parallel shards the in-process trainer; the two "
+                    "paths are mutually exclusive")
+        if args.network:
+            p.error("--network prices a SIMULATED channel; the tcp "
+                    "transport measures real socket traffic; drop one of "
+                    "the two flags")
+    if args.dropout_at is not None and args.transport != "tcp":
+        p.error("--dropout-at injects a process crash; it requires "
+                "--transport tcp")
+    if args.straggler_s is not None:
+        if args.transport != "tcp":
+            p.error("--straggler-s stalls a real party process's uploads; "
+                    "it requires --transport tcp")
+        if args.straggler_s <= 0:
+            p.error("--straggler-s must be a positive delay in seconds")
+        if args.parties < 2:
+            p.error("--straggler-s stalls the LAST party so the others "
+                    "define the pace; it requires --parties >= 2")
+    if args.monitor and not args.trace:
+        p.error("--monitor scores the live trace stream; it requires "
+                "--trace DIR")
+    if args.serve is None and (args.serve_batch is not None
+                               or args.serve_cache is not None):
         p.error("--serve-batch/--serve-cache size the serving engine; they "
                 "require --serve")
+    if args.resume and not args.ckpt_dir:
+        p.error("--resume restores from --ckpt-dir; pass --ckpt-dir")
     if args.dp_epsilon is not None:
         if args.dp_epsilon <= 0:
             p.error("--dp-epsilon must be > 0 (use 'inf' to disable)")
@@ -143,6 +172,17 @@ def parse_args(argv=None):
     if args.schedule is not None or args.opt_state_dtype != "f32":
         p.error("--schedule/--opt-state-dtype configure the first-order lm "
                 "trainer; vfl-zoo keeps no Adam state")
+    refused = [
+        (args.mode != "vfl-zoo", f"--mode {args.mode} (first-order Adam "
+         "needs a backward pass)"),
+        (args.data_parallel != 1, "--data-parallel"),
+        (args.network is not None, "--network"),
+        (args.serve is not None, "--serve"),
+        (args.trace is not None or args.monitor, "--trace/--monitor"),
+    ]
+    for hit, what in refused:
+        if hit:
+            p.error(f"{what} {NOT_PORTED}")
     if args.dp_delta is None:
         args.dp_delta = 1e-5
     return args
@@ -187,13 +227,73 @@ class MetricLogger:
               file=self.stream, flush=True)
 
 
+def run_tcp(args, cfg, device, log) -> dict:
+    """--transport tcp: the multi-process federation runtime on the paper's
+    LR problem with ``d_model`` features; the server and each party are OS
+    processes on ``device``. Checkpoint/resume and the scripted faults go
+    through runtime/."""
+    from repro_torch.configs import RuntimeConfig
+    from repro_torch.runtime import (FailurePlan, PartyFault, history_losses,
+                                     run_federation)
+
+    spec = {"kind": "lr", "parties": args.parties,
+            "features": cfg.d_model, "samples": max(64, args.batch_size * 8),
+            "batch": args.batch_size, "seed": args.seed,
+            "vfl": {"mu": args.mu, "lr_party": args.lr,
+                    "lr_server": args.lr / args.parties}}
+    if args.fused:
+        spec["vfl"]["fused"] = True
+    if args.codec != "f32":
+        spec["vfl"]["codec"] = args.codec
+    if args.dp_epsilon is not None:
+        # the target rides the spec; run_federation calibrates the noise
+        # multiplier once and ships the resolved value to every process
+        spec["vfl"]["dp"] = {"epsilon": args.dp_epsilon,
+                             "delta": args.dp_delta, "clip": args.dp_clip}
+    faults = {}
+    if args.dropout_at is not None:
+        faults[0] = PartyFault(crash_at_round=args.dropout_at)
+    if args.straggler_s is not None:
+        # the LAST party straggles, so the stall composes with
+        # --dropout-at's party-0 crash in one run
+        faults[args.parties - 1] = PartyFault(slow_send_s=args.straggler_s)
+    # the deadline scales with the requested work: 2 s a round covers the
+    # socket round trips (plus the scripted stall on the straggler)
+    per_round = 2.0 + (args.straggler_s or 0.0)
+    cfg_rt = RuntimeConfig(
+        deadline_s=max(300.0, 120.0 + per_round * args.steps * args.parties))
+    res = run_federation(spec, rounds=args.steps, plan=FailurePlan(faults),
+                         cfg=cfg_rt, ckpt_root=args.ckpt_dir,
+                         resume=args.resume, device=device)
+    h = history_losses(res)
+    srv = res["server"]
+    # a --resume of a finished federation has no new rounds
+    final_h = float(h[-1]) if len(h) else float("nan")
+    out = {"h": [float(x) for x in h], "updates": srv["updates"],
+           "rejoins": res["rejoins"], "disconnects": srv["disconnects"],
+           "wire_up_bytes": sum(srv["bytes_by_kind"].get(k, 0)
+                                for k in ("c_up", "c_hat_up")),
+           "wire_down_bytes": srv["bytes_by_kind"].get("loss_down", 0),
+           "socket_bytes": srv["socket_bytes_in"] + srv["socket_bytes_out"],
+           "device": srv["device"]}
+    log.log(args.steps, transport="tcp", h=final_h,
+            **{k: v for k, v in out.items() if k not in ("h", "device")})
+    return out
+
+
 def main(argv=None) -> dict:
-    """Run the launcher. Returns {"h": per-step losses, "step_s": per-step
-    host seconds (each ends when h reaches the host), "setup_s": seconds
-    of data and state set-up, "device": the torch device}."""
+    """Run the launcher. vfl-zoo in memory returns {"h": per-step losses,
+    "step_s": per-step host seconds (each ends when h reaches the host),
+    "setup_s": seconds of data and state set-up, "start_step": the step
+    resumed from (0 without --resume), "device": the torch device}; tcp
+    returns the federation's losses and counters (``run_tcp``)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.transport == "tcp":
+        # the LR problem pads its d_model features to q equal blocks
+        return run_tcp(args, cfg, device,
+                       MetricLogger(f"train:{args.arch}:vfl-zoo-tcp"))
     if cfg.d_model % args.parties:
         raise ValueError(f"--parties must divide d_model={cfg.d_model}")
     t_setup = time.perf_counter()
@@ -212,6 +312,25 @@ def main(argv=None) -> dict:
     _, init, step = step_lib.make_vfl_zoo_step(model, vfl)
     state = init(prng.key(args.seed), device)
     rng = np.random.default_rng(args.seed)
+    start_step = 0
+    if args.resume:
+        step0 = latest_step(args.ckpt_dir)
+        if step0 is not None:
+            restored, _ = restore_checkpoint(
+                args.ckpt_dir, {"w0": state.w0, "parties": state.parties,
+                                "hist": state.hist}, step0)
+            # the whole AsyState: the ring buffer too (rebuilding it from
+            # the restored blocks would hand the next tau steps fresher
+            # stale params than the uninterrupted run saw); the step count
+            # continues (each step's keys fold it in) and the batch stream
+            # fast-forwards past the consumed draws
+            state = state._replace(w0=restored["w0"],
+                                   parties=restored["parties"],
+                                   hist=restored["hist"], step=step0)
+            start_step = step0
+            for _ in range(step0):
+                rng.integers(0, n, args.batch_size)
+            log.log(0, resumed_from=step0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_setup
@@ -225,9 +344,16 @@ def main(argv=None) -> dict:
         losses.append(float(h))
         step_s.append(time.perf_counter() - t0)
         if s % args.log_every == 0 or s == args.steps - 1:
-            log.log(s, h=losses[-1], step_s=step_s[-1])
+            log.log(start_step + s, h=losses[-1], step_s=step_s[-1])
+    if args.ckpt_dir:
+        # a resumed run commits PAST the restored step, or the next resume
+        # would restore the earlier checkpoint and drop this run's work
+        save_checkpoint(args.ckpt_dir, start_step + args.steps,
+                        {"w0": state.w0, "parties": state.parties,
+                         "hist": state.hist},
+                        {"arch": args.arch, "mode": "vfl-zoo"})
     return {"h": losses, "step_s": step_s, "setup_s": setup_s,
-            "device": str(device)}
+            "start_step": start_step, "device": str(device)}
 
 
 if __name__ == "__main__":

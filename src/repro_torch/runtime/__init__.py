@@ -1,0 +1,20 @@
+"""Multi-process federation runtime: the AsyREVEL server and each party as
+separate OS processes over TCP, behind the same typed Message/Channel
+seam as the in-process executors, speaking the reference's ``ZV`` v1
+wire byte for byte. Federated serving over this transport and the
+runtime's trace spans are not ported yet (ROADMAP.md, Queue 1 items 9
+and 13)."""
+from repro_torch.runtime.failures import (CRASH_EXIT_CODE,  # noqa: F401
+                                          NO_FAILURES, FailurePlan,
+                                          PartyFault)
+from repro_torch.runtime.harness import (history_losses,  # noqa: F401
+                                         ms_per_update, run_federation,
+                                         run_reference, serial_levels)
+from repro_torch.runtime.server import (FederationError,  # noqa: F401
+                                        RuntimeServer)
+from repro_torch.runtime.transport import (WIRE_VERSION,  # noqa: F401
+                                           ConnectionClosed, FramedSocket,
+                                           TransportError, TransportTimeout,
+                                           WireFormatError,
+                                           connect_with_retry,
+                                           decode_message, encode_message)
