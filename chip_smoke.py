@@ -62,7 +62,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    noise and rounding bits of c and c_hat); losses must be finite, wire
    bytes exact, and the unfused run bitwise equal. Then the same port on
    the card against the port on the CPU on a small problem, and an
-   undefended D7 training run (scale 0.01, 1200 updates) whose loss must
+   undefended D7 training run (scale 0.01, 600 updates) whose loss must
    fall.
 4. vfl-zoo: ``python -m repro_torch.launch.train --arch qwen1.5-0.5b --mode
    vfl-zoo --parties 4 --batch-size 4 --seq-len 2048 --steps 5 --fused
@@ -80,28 +80,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. Async: the paper's Section 5.1 experiment (examples/federated_fcn_mnist.py)
    on the threaded executors: D7 at scale 0.01, q = 8, batch 64, uniform
    directions, 1 ms simulated compute per party round, party 3 a 1.4x
-   straggler. ``run_async`` (1200 updates) and ``run_sync`` (150 rounds),
+   straggler. ``run_async`` (600 updates) and ``run_sync`` (75 rounds),
    each with the counters zeroed just before it and read just after:
-   exactly 1200 updates, 1200 dual_matmul and 6 x 1200 draw launches each
+   exactly 600 updates, 600 dual_matmul and 6 x 600 draw launches each
    (the directions of 4 party and 2 server leaves an update), falling loss,
    exact wire bytes; both wall-clock times and their ratio.
 6. Scan: the device-scan trainer (``asyrevel.train``) on the defended
    paper FCN at D7 width (n = 60000, batch 2048, fused int8 + gaussian DP
    calibrated by the port's accountant to epsilon 8, delta 1e-5, clip 1
    for each run's steps and directions; rademacher, mu 5e-2): asyrevel
-   for 50 steps at K = 1 and K = 4, synrevel for 10 steps, each fused and
+   for 25 steps at K = 1 and K = 4, synrevel for 10 steps, each fused and
    unfused with the counters zeroed just before it and read just after.
    Launches per step exact (``scan_launches``), losses finite, and the
    fused run's per-step h and final state bitwise the unfused run's. Then
-   ``run_serial`` at K = 4 (10 rounds of 8): launches exact
+   ``run_serial`` at K = 4 (5 rounds of 8): launches exact
    (``host_round_launches``), bytes exact against the analytic formula
    (up (1+K)(B + 4), down (1+K) 4 a round), fused bitwise unfused. Then
    the card against the CPU (D7 at scale 0.01, batch 64, 20 asyrevel
    steps at K = 2, fused f32 + DP: losses within 1e-3) and
-   examples/quickstart_torch.py on the card (4000 steps: train acc > 0.8).
+   examples/quickstart_torch.py on the card (2000 steps: train acc > 0.8).
 7. Runtime: the multi-process TCP federation (``runtime.run_federation``)
    on the defended D7 FCN of phase 3 at full width (n = 60000, batch 2048,
-   5 rounds a party), the server and the 8 parties as 9 OS processes on
+   4 rounds a party), the server and the 8 parties as 9 OS processes on
    the one card: (a) the serial schedule, losses, every party's final
    params and w0 bitwise equal to ``run_reference`` in this process, bytes
    and messages by kind equal, c_up exactly rounds·q·(2048 + 4) bytes,
@@ -114,8 +114,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parent launches nothing during a federation, and no process is left
    alive after one. Host-clock ms per party update of (a) and (c) beside
    the in-process ``run_serial``'s.
-8. The ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. At the end, after 9 and 10: the ``{"kernels": [...]}`` line, the card
+   line, and last ``{"ok": true, "device": {...}}``.
+9. Serving: federated inference (``serving.federated``, and over TCP
+   ``runtime.run_tcp_serving``) on the runtime phase's D7 FCN without DP
+   (fused int8), the 8 party blocks phase 3's fused run ended with saved
+   as step-10 checkpoints, w0 from the seed. 2048 request ids from
+   ``default_rng(0)`` in memory at slots 8 and 64, each with the counters
+   zeroed just before and read just after: launches exact
+   (``serving_launches``: one keyless int8 defended_encode per issued
+   (party, step), 3 data draws, 2 per party block, 1 for w0, nothing
+   else), bytes equal to the analytic formula, the serving transcript's
+   exposure (ids and function values, no grads or params, one c_up per
+   serve_down). A second pass over 512 of the ids is all answer-cache
+   hits (8 x 512), with no serve_down and no launch. Fused int8 bitwise
+   unfused int8 (predictions and payloads); in f32 slots 64 bitwise slots 1
+   (predictions and cached values); the card's predictions equal the CPU
+   port's on a small problem. TCP: 8 serving party processes on the card
+   at slots 64, bitwise the in-memory engine, launches exact in every
+   process, each exiting with 0. The launcher's ``--serve 64
+   --serve-batch 8 --network wan`` and its ``--transport tcp`` twin (4
+   parties, qwen1.5-0.5b's d_model of features). Predictions per second on
+   the host clock, the split of an engine step, socket and payload bytes
+   per prediction, and the simulated 'wan' wire's priced time, p50, p99.
+10. Audits: benchmarks/bench_privacy.py's two transcripts (ZOO-VFL's
+   ``run_serial`` and TIG's ``HostTIGTrainer``, and the aligned ZOO
+   rounds) recorded on the card and on the CPU, through every attack of
+   ``core/privacy.py``: accuracies, flags and reasons equal (tig_acc 1.0,
+   zoo_acc 0.5, zoo_ratio 0.358, recovery error below 1e-9). Then
+   ``HostTIGTrainer`` on the D7 FCN at full width (8 parties, batch 2048,
+   10 rounds): finite, falling losses, grad_down exactly 2048 x 4 bytes a
+   round, ms per TIG round beside the fused ZOO round's.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
@@ -135,6 +164,7 @@ It imports nothing of jax or of the reference package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -429,6 +459,16 @@ def kernel_phase(dev, int_rate):
                         c, None, None, None, "int8")):
                     raise AssertionError(
                         f"defended_encode int8 without key at n={n}")
+    # the serving answers' keyless int8 encodes: one per party a step, of
+    # as many values as the step's new ids (1 up to the slots, 8 or 64)
+    for n in SERVING_ENCODE_SIZES:
+        c = 2.0 * torch.randn(n, device=dev, generator=gen)
+        got = fused_round.defended_encode_keyed(c, None, None, None, "int8")
+        want = plain_encode_keyed(c, None, None, None, "int8")
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"defended_encode int8 without key at n={n}")
+        worst["defended_encode"] = max(worst["defended_encode"],
+                                       max_abs(got, want))
 
     for n in (12544, 128, 1, 80, 10, 1 << 24):
         w = torch.randn(n, device=dev, generator=gen)
@@ -469,6 +509,11 @@ DRAW_SIZES = (1, 10, 16, 20, 80, 128, 256, 1024, 2048, 12544, 24576, 32768,
               1 << 20, 2883584, 1 << 24, 25165824, 38895616, 69206016,
               155582464)
 DRAW_RANGES = ((5003, (1 << 32) - 1000), (1 << 24, (1 << 32) - (1 << 23)))
+# the sizes only the runtime's and serving's problems draw, checked bitwise
+# without timing rows: the FCN labels' two bit streams (n = 60000) and X
+# (60000 x 784)
+DRAW_CHECKED = (60000, 47040000)
+SERVING_ENCODE_SIZES = (1, 7, 8, 63, 64)
 
 
 def draw_phase(dev, int_rate):
@@ -511,6 +556,17 @@ def draw_phase(dev, int_rate):
             log(json.dumps(row))
             if (n, offset, mode) == (12544, 0, "bits"):
                 timed = row
+            torch.cuda.empty_cache()
+    for n in DRAW_CHECKED:
+        k = (0x5EED, n)
+        for mode in ("bits", "normal"):
+            got = prng_draw.draw(k, (n,), mode, dev)
+            want = prng.draw_plain(k, (n,), mode, dev)
+            if not bitwise_equal(got, want):
+                raise AssertionError(f"prng_draw != the eager chain: {mode} "
+                                     f"n={n}")
+            worst = max(worst, max_abs(got, want))
+            del got, want
             torch.cuda.empty_cache()
     return timed, worst
 
@@ -888,9 +944,9 @@ def main_path_phase(dev):
                           compute_cost_s=0.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = tr.run_serial(150)
+    res = tr.run_serial(TRAIN_ROUNDS)
     torch.cuda.synchronize()
-    ms_t = (time.perf_counter() - t0) * 1e3 / (150 * q)
+    ms_t = (time.perf_counter() - t0) * 1e3 / (TRAIN_ROUNDS * q)
     lt = [h for _, h in res.history]
     first, last = float(np.mean(lt[:50])), float(np.mean(lt[-50:]))
     log(f"[train] {len(lt)} updates, loss {first:.3f} -> {last:.3f}, "
@@ -898,7 +954,9 @@ def main_path_phase(dev):
         f"{res.bytes_down}")
     if not last < first:
         raise AssertionError("undefended training loss did not fall")
-    return launches, {"fused_ms_per_round": ms_f,
+    # the fused run's final party blocks, which the serving phase serves
+    blocks = [dict(w) for w in tr_f.party_w]
+    return launches, blocks, {"fused_ms_per_round": ms_f,
                       "unfused_ms_per_round": ms_u,
                       "fused_launches": launches, "unfused_launches": unfused,
                       "train_ms_per_round": ms_t,
@@ -915,6 +973,11 @@ D7_FUSED_ROUND = {"defended_encode": 2, "zo_update": 6, "dual_matmul": 1,
                   "flash_attention": 0, "prng_draw": 6}
 D7_UNFUSED_ROUND = {"defended_encode": 0, "zo_update": 0, "dual_matmul": 1,
                     "flash_attention": 0, "prng_draw": 10}
+# the depths of the undefended training check and the async experiment
+# (PR 20 halved them, from 150 rounds and 1200 updates, to keep the whole
+# script within PR 19's time with the serving and audit phases added)
+TRAIN_ROUNDS = 75
+ASYNC_UPDATES = 600
 # directions per update of the async experiment (uniform: the gaussian
 # draw, then its norm): the party's 4 leaves and the server's 2
 ASYNC_DRAWS_PER_UPDATE = 6
@@ -951,7 +1014,7 @@ def async_phase(dev):
     from repro_torch.data.synthetic import make_paper_dataset
     from repro_torch.data.vertical import pad_party_views, vertical_partition
 
-    q, batch, updates = 8, 64, 1200
+    q, batch, updates = 8, 64, ASYNC_UPDATES
     (X, y), spec = make_paper_dataset("D7_MNIST", scale=0.01)
     Xp, _ = pad_party_views(vertical_partition(X, q)[0])
     model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
@@ -1005,7 +1068,12 @@ def async_phase(dev):
 # --------------------------------------------------------------- scan phase --
 
 # the scan runs: (algorithm, directions K, steps)
-SCAN_RUNS = (("asyrevel", 1, 50), ("asyrevel", 4, 50), ("synrevel", 1, 10))
+SCAN_RUNS = (("asyrevel", 1, 25), ("asyrevel", 4, 25), ("synrevel", 1, 10))
+# the K = 4 host round's rounds of q and the quickstart's steps (PR 20
+# halved them from 10 and 4000 for the script's time; the quickstart
+# still reaches acc 0.869 on the CPU at 2000)
+HOST_K4_ROUNDS = 5
+QUICKSTART_STEPS = 2000
 # the paper FCN's perturbed leaves: a party's w1, b1, w2, b2; the server's
 # w, b
 PARTY_LEAVES, SERVER_LEAVES = 4, 2
@@ -1132,7 +1200,7 @@ def scan_phase(dev):
             "equal to unfused")
 
     # the host executor's K-direction round at D7 width
-    K, rounds = 4, 10
+    K, rounds = 4, HOST_K4_ROUNDS
     dp = scan_dp(rounds, K)
     host = {}
     for fused in (True, False):
@@ -1216,6 +1284,7 @@ def scan_phase(dev):
         "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
     quick = importlib.util.module_from_spec(spec_)
     spec_.loader.exec_module(quick)
+    quick.STEPS = QUICKSTART_STEPS
     res = quick.run(dev)
     final = float(np.mean(res["losses"][-100:]))
     log(f"[scan] quickstart on the card: {len(res['losses'])} steps in "
@@ -1239,7 +1308,7 @@ RUNTIME_SPEC = {"kind": "fcn", "parties": 8, "features": 784, "classes": 10,
                         "lr_party": 2e-2, "lr_server": 1e-2, "codec": "int8",
                         "fused": True,
                         "dp": {"noise_multiplier": 1.3, "clip": 1.0}}}
-RUNTIME_ROUNDS = 5
+RUNTIME_ROUNDS = 4
 # launches of one defended D7 party round in a party process (c and c_hat
 # encoded from their keys, a draw and a zo_update for each of the 4
 # perturbed leaves, the two tower evaluations in one dual_matmul), and of
@@ -1486,6 +1555,499 @@ def runtime_phase(dev, spec=RUNTIME_SPEC, rounds=RUNTIME_ROUNDS):
     return stats
 
 
+# ------------------------------------------------------------ serving phase --
+
+# the runtime phase's D7 FCN without DP (serving refuses a defended
+# exchange): fused int8, 8 parties x 98 features, n = 60000
+SERVING_SPEC = {**RUNTIME_SPEC, "vfl": {k: v for k, v in
+                                        RUNTIME_SPEC["vfl"].items()
+                                        if k != "dp"}}
+SERVING_REQUESTS = 2048
+SERVING_REPEAT = 512
+SERVING_CKPT_STEP = 10
+SERVING_SLOTS = (8, 64)
+
+
+def serving_launches(role, answers, q=1):
+    """Exact launches of serving: a party process ('party') makes one
+    keyless defended_encode per answer it sends (one c_up a step it is
+    queried in) plus the data draws and its block's 2 initial draws (the
+    tree a checkpoint restores into); the TCP front end ('front') only
+    the data draws and w0's; the in-memory engine ('memory') all of it
+    for its q parties, every answer of every party in ``answers``. The
+    one-row forwards and reduces are plain products: no other kernel."""
+    want = {name: 0 for name in RUNTIME_PARTY_ROUND}
+    init = {"party": RUNTIME_INIT_DRAWS["party"],
+            "front": RUNTIME_INIT_DRAWS["server"],
+            "memory": q * RUNTIME_INIT_DRAWS["party"]
+            + RUNTIME_INIT_DRAWS["server"]}[role]
+    want["defended_encode"] = answers if role != "front" else 0
+    want["prng_draw"] = RUNTIME_DATA_DRAWS + init
+    return want
+
+
+def serving_engine(spec, dev, ckpt_root, slots, channel=None):
+    """The in-memory serving engine as ``run_tcp_serving`` builds its
+    parties and front end: the problem on ``dev``, each party's block
+    restored from ``<ckpt_root>/party<m>`` into its seed-initialized tree
+    (its step the version), w0 from the seed."""
+    import os
+
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.core import async_host
+    from repro_torch.runtime.problem import build_problem
+    from repro_torch.serving.federated import FederatedServingEngine
+
+    prob = build_problem(spec, dev)
+    model, q = prob.model, prob.model.num_parties
+    server_key, party_keys, _ = async_host.trainer_keys(prob.seed, q)
+    blocks, versions = [], []
+    for m in range(q):
+        d = os.path.join(ckpt_root, f"party{m}")
+        step = latest_step(d)
+        w, _ = restore_checkpoint(d, model.init_party(party_keys[m], m, dev),
+                                  step)
+        blocks.append(w)
+        versions.append(step)
+    return FederatedServingEngine.from_problem(
+        prob, channel=channel, slots=slots, party_params=blocks,
+        w0=model.init_server(server_key, dev), versions=versions)
+
+
+def serve(engine, ids, first_rid=0):
+    """Submit ``ids`` and run the engine; returns the host seconds of the
+    run, which ends with the predictions on the host."""
+    from repro_torch.serving.federated import ServeRequest
+    for i, sid in enumerate(ids):
+        engine.submit(ServeRequest(rid=first_rid + i, sample_id=int(sid)))
+    t0 = time.perf_counter()
+    engine.run()
+    return time.perf_counter() - t0
+
+
+def payload_bits_equal(a, b) -> bool:
+    """Two host wire payloads (numpy arrays, or the int8 codec's pair)
+    equal bit for bit."""
+    import numpy as np
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(payload_bits_equal(x, y)
+                                        for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def predictions(engine, first_rid=0):
+    return [r.prediction for r in sorted(engine.completed,
+                                         key=lambda r: r.rid)
+            if r.rid >= first_rid]
+
+
+def serving_phase(dev, blocks):
+    """Federated serving on the D7 FCN at full width (module docstring,
+    phase 9): ``blocks`` are saved as step-10 checkpoints of the 8
+    parties, which every run serves; returns its numbers."""
+    import tempfile
+
+    import numpy as np
+    spec, q = SERVING_SPEC, SERVING_SPEC["parties"]
+    ids = np.random.default_rng(0).integers(0, spec["samples"],
+                                            SERVING_REQUESTS)
+    with tempfile.TemporaryDirectory() as root:
+        return _serving_runs(dev, blocks, spec, q, ids, root)
+
+
+def _serving_runs(dev, blocks, spec, q, ids, root):
+    import os
+
+    import numpy as np
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import RuntimeConfig
+    from repro_torch.core.comms import serving_bytes_per_prediction
+    from repro_torch.core.privacy import serving_exposure_from_transcript
+    from repro_torch.core.wire import RecordingChannel
+    from repro_torch.launch import train
+    from repro_torch.runtime.problem import build_problem
+    from repro_torch.runtime.serving import run_tcp_serving
+    from repro_torch.serving.federated import FederatedServingEngine
+
+    stats = {}
+    for m, w in enumerate(blocks):
+        save_checkpoint(os.path.join(root, f"party{m}"), SERVING_CKPT_STEP,
+                        w, {"party": m})
+
+    # (a) in memory, slots 8 and 64, each with the counters zeroed just
+    # before and read just after
+    runs = {}
+    for slots in SERVING_SLOTS:
+        zero_launches()
+        rec = RecordingChannel()
+        eng = serving_engine(spec, dev, root, slots, channel=rec)
+        wall = serve(eng, ids)
+        launches = read_launches()
+        eng.validate_wire()
+        met = eng.metrics()
+        issued = rec.msgs_by_kind["c_up"]
+        want = serving_launches("memory", issued, q)
+        if launches != want or rec.msgs_by_kind["serve_down"] != issued:
+            raise AssertionError(f"serving slots {slots}: launches "
+                                 f"{launches}, want {want} ({issued} c_up)")
+        analytic = sum(eng._analytic.values())
+        if met["wire_bytes"] != analytic or met["served"] != len(ids):
+            raise AssertionError(f"serving slots {slots}: {met}")
+        preds = predictions(eng)
+        if not all(isinstance(p, int) and 0 <= p < spec["classes"]
+                   for p in preds):
+            raise AssertionError(f"serving slots {slots}: predictions "
+                                 f"{preds[:8]}")
+        runs[slots] = (eng, rec, preds)
+        stats[f"memory_slots{slots}"] = {
+            "wall_s": wall, "predictions_per_s": len(ids) / wall,
+            "steps": met["steps"], "c_up_messages": issued,
+            "step_split_s": dict(eng.step_s),
+            "bytes_per_prediction": met["bytes_per_prediction"],
+            "full_batch_formula": serving_bytes_per_prediction(slots, q,
+                                                               "int8"),
+            "launches": launches}
+        log(f"[serve] memory, slots {slots}: {len(ids)} predictions in "
+            f"{wall:.3f} s ({len(ids) / wall:.1f}/s, host clock), "
+            f"{met['steps']} steps, {issued} c_up, split "
+            f"{ {k: round(v, 4) for k, v in eng.step_s.items()} } s, "
+            f"{met['bytes_per_prediction']:.2f} B/prediction "
+            f"(= analytic), launches {launches}")
+
+    # (b) a second pass over 512 of the ids: all answers from the cache
+    eng, rec, _ = runs[8]
+    hits0, down0 = eng.metrics()["cache_hits"], rec.msgs_by_kind["serve_down"]
+    zero_launches()
+    serve(eng, ids[:SERVING_REPEAT], first_rid=len(ids))
+    again = read_launches()
+    hits = eng.metrics()["cache_hits"] - hits0
+    if hits != q * SERVING_REPEAT or \
+            rec.msgs_by_kind["serve_down"] != down0 or any(again.values()):
+        raise AssertionError(f"serving repeat: {hits} hits, serve_down "
+                             f"{rec.msgs_by_kind['serve_down']} != {down0}, "
+                             f"launches {again}")
+    if predictions(eng, len(ids)) != runs[8][2][:SERVING_REPEAT]:
+        raise AssertionError("serving repeat: cached predictions differ")
+    eng.validate_wire()
+    log(f"[serve] second pass over {SERVING_REPEAT} ids: {hits} hits "
+        f"({q} x {SERVING_REPEAT}), no serve_down, no launch")
+    exposure = serving_exposure_from_transcript(rec.transcript)
+    if not (exposure["serve_query_ids"] and exposure["function_values"]
+            and not exposure["intermediate_grads"]
+            and not exposure["model_params"]
+            and exposure["messages"]["c_up"]
+            == exposure["messages"]["serve_down"]):
+        raise AssertionError(f"serving exposure {exposure}")
+    log(f"[serve] exposure of the slots-8 transcript: {exposure}")
+
+    # (c) fused int8 == unfused int8, and slots 64 == slots 1 in f32
+    unfused = {**spec, "vfl": {**spec["vfl"], "fused": False}}
+    eng_u = serving_engine(unfused, dev, root, 64, channel=RecordingChannel())
+    serve(eng_u, ids[:SERVING_REPEAT])
+    if predictions(eng_u) != runs[64][2][:SERVING_REPEAT] or not all(
+            payload_bits_equal(a.payload, b.payload) for a, b in
+            zip(eng_u.channel.transcript, runs[64][1].transcript)):
+        raise AssertionError("serving: fused int8 != unfused int8")
+    f32 = {**spec, "vfl": {**unfused["vfl"], "codec": "f32"}}
+    few = ids[:SERVING_REPEAT // 2]
+    e64, e1 = (serving_engine(f32, dev, root, s) for s in (64, 1))
+    serve(e64, few)
+    serve(e1, few)
+    if predictions(e64) != predictions(e1) or any(
+            dict(a._d) != dict(b._d) for a, b in zip(e64.caches, e1.caches)):
+        raise AssertionError("serving f32: slots 64 != slots 1")
+    log(f"[serve] fused int8 bitwise unfused (predictions and payloads, "
+        f"{SERVING_REPEAT} requests at slots 64); f32 slots 64 bitwise slots 1 "
+        f"(predictions and cached values, {len(few)} requests)")
+
+    # (d) the card against the CPU on a small problem
+    small = {"kind": "fcn", "parties": 4, "features": 32, "classes": 10,
+             "samples": 256, "batch": 16, "seed": 0,
+             "vfl": {"mu": 5e-2, "codec": "int8", "fused": True}}
+    small_ids = np.random.default_rng(1).integers(0, 256, 64)
+    got = []
+    for d in (dev, "cpu"):
+        e = FederatedServingEngine.from_problem(build_problem(small, d),
+                                                slots=8)
+        serve(e, small_ids)
+        got.append(predictions(e))
+    if got[0] != got[1]:
+        raise AssertionError(f"serving card vs CPU: {got}")
+    log("[serve] card vs CPU, small fused int8 FCN, 64 requests: "
+        "predictions equal")
+
+    # (e) TCP: 8 serving party processes on the card, slots 64
+    zero_launches()
+    res = run_tcp_serving(spec, ids, cfg=RuntimeConfig(deadline_s=600.0),
+                          slots=64, ckpt_root=root, device=dev)
+    parent = read_launches()
+    _no_orphans(res, "serving")
+    if [p for _, p in res["predictions"]] != runs[64][2]:
+        raise AssertionError("serving TCP != the in-memory engine")
+    if res["analytic"] != runs[64][0]._analytic:
+        raise AssertionError(f"serving TCP bytes {res['analytic']}")
+    if parent != serving_launches("front", 0):
+        raise AssertionError(f"serving front end launches {parent}")
+    for m, p in res["parties"].items():
+        want = serving_launches("party", p["msgs_by_kind"]["c_up"])
+        if p["device"].split(":")[0] != dev.type or p["launches"] != want \
+                or p["version"] != SERVING_CKPT_STEP or p["aborted"]:
+            raise AssertionError(f"serving party {m}: {p['device']} "
+                                 f"launches {p['launches']}, want {want}, "
+                                 f"version {p['version']}")
+    tcp_s = sum(res["step_s"].values())
+    sock = sum(p["socket_bytes_in"] + p["socket_bytes_out"]
+               for p in res["parties"].values())
+    met = res["metrics"]
+    stats["tcp_slots64"] = {
+        "engine_s": tcp_s, "predictions_per_s": len(ids) / tcp_s,
+        "step_split_s": res["step_s"],
+        "bytes_per_prediction": met["bytes_per_prediction"],
+        "socket_bytes_per_prediction": sock / len(ids),
+        "party_answer_s": [res["parties"][m]["answer_s"] for m in range(q)],
+        "launches_party0": res["parties"][0]["launches"]}
+    log(f"[serve] TCP, {q} party processes on {res['parties'][0]['device']}"
+        f", slots 64: predictions bitwise the in-memory engine's; "
+        f"{len(ids) / tcp_s:.1f} predictions/s over the engine's steps "
+        f"({tcp_s:.3f} s; split "
+        f"{ {k: round(v, 4) for k, v in res['step_s'].items()} }); "
+        f"{met['bytes_per_prediction']:.2f} payload B/prediction, "
+        f"{sock / len(ids):.1f} socket B/prediction; launches exact in "
+        "every process; every process exited with 0")
+
+    # (f) the launcher: memory priced on 'wan', and its tcp twin
+    argv = ["--arch", "qwen1.5-0.5b", "--mode", "vfl-zoo", "--parties", "4",
+            "--serve", "64", "--serve-batch", "8"]
+    wan = train.main(argv + ["--network", "wan"])
+    tcp = train.main(argv + ["--transport", "tcp"])
+    if (wan["served"], tcp["served"]) != (64.0, 64.0):
+        raise AssertionError(f"launcher --serve: {wan} {tcp}")
+    import multiprocessing
+    if multiprocessing.active_children():
+        raise AssertionError("launcher --serve tcp left processes")
+    stats["launcher_wan"] = {k: wan[k] for k in (
+        "wire_s", "p50_s", "p99_s", "requests_per_s",
+        "bytes_per_prediction")}
+    log(f"[serve] launcher --serve 64 --serve-batch 8: memory on the "
+        f"simulated 'wan' wire: wire_s {wan['wire_s']:.4f} s, p50 "
+        f"{wan['p50_s']:.4f} s, p99 {wan['p99_s']:.4f} s (the simulated "
+        f"wire's clock, not the card's), {wan['bytes_per_prediction']} "
+        f"B/prediction; --transport tcp served {tcp['served']:.0f} on "
+        f"{tcp['device']}")
+    return stats
+
+
+# -------------------------------------------------------------- audit phase --
+
+# benchmarks/bench_privacy.py's setup: the paper LR over Q parties of D
+# features (make_classification's N samples, its seed 3), BATCH, ROUNDS
+PRIVACY_Q, PRIVACY_D, PRIVACY_N, PRIVACY_BATCH, PRIVACY_ROUNDS = \
+    4, 32, 256, 32, 24
+BACKDOOR_KEYS = 20
+TIG_ROUNDS = 10
+
+
+def privacy_setup():
+    """bench_privacy's model, VFL settings, padded features and labels."""
+    import torch
+    from repro_torch.configs import PaperLRConfig, VFLConfig
+    from repro_torch.core.vfl import PaperLRModel, pad_features
+    from repro_torch.data.synthetic import make_classification
+    q, d = PRIVACY_Q, PRIVACY_D
+    X, y = make_classification(PRIVACY_N, d, seed=3)
+    model = PaperLRModel(PaperLRConfig(num_features=d, num_parties=q))
+    vfl = VFLConfig(num_parties=q, mu=1e-3, lr_party=5e-2,
+                    lr_server=5e-2 / q)
+    return model, vfl, pad_features(torch.from_numpy(X), d, q).numpy(), y
+
+
+def record_transcripts(device, seed=0):
+    """bench_privacy's ``record_transcripts`` on the port, on ``device``:
+    one (data, seed) pair, the ZOO-VFL host executor and the TIG one (its
+    'full' sampler: successive rounds revisit the same aligned samples),
+    two transcripts."""
+    from repro_torch.core.async_host import HostAsyncTrainer
+    from repro_torch.core.tig import HostTIGTrainer
+    from repro_torch.core.wire import RecordingChannel
+    model, vfl, Xp, y = privacy_setup()
+    rec_zoo, rec_tig = RecordingChannel(), RecordingChannel()
+    HostAsyncTrainer(model, vfl, Xp, y, batch_size=PRIVACY_BATCH,
+                     compute_cost_s=0.0, seed=seed, channel=rec_zoo,
+                     device=device).run_serial(rounds=PRIVACY_ROUNDS)
+    HostTIGTrainer(model, vfl, Xp, y, batch_size=PRIVACY_BATCH, seed=seed,
+                   channel=rec_tig, sampler="full",
+                   device=device).run(rounds=PRIVACY_ROUNDS)
+    return rec_zoo.transcript, rec_tig.transcript, y
+
+
+def record_aligned_zoo(device, seed=0, rounds=4):
+    """bench_privacy's ``record_aligned_zoo`` on the port: ZOO-VFL rounds
+    of party 0 on a FIXED aligned batch, the colluding RMA adversary's
+    ideal observation pattern."""
+    import numpy as np
+    from repro_torch.core.async_host import HostAsyncTrainer
+    from repro_torch.core.wire import RecordingChannel
+    from repro_torch.utils import prng
+    model, vfl, Xp, y = privacy_setup()
+    rec = RecordingChannel()
+    tr = HostAsyncTrainer(model, vfl, Xp, y, batch_size=PRIVACY_BATCH,
+                          compute_cost_s=0.0, seed=seed, channel=rec,
+                          device=device)
+    for r in range(rounds):
+        tr.party_step(0, np.arange(PRIVACY_BATCH), prng.key(r))
+    return rec.transcript
+
+
+def audit_numbers(privacy, t_zoo, t_tig, t_aligned, y, keys):
+    """bench_privacy's Theorem-1 numbers from recorded transcripts, through
+    ``privacy`` (the port's core/privacy.py, or any module with its
+    functions); ``keys`` are the backdoor replay's BACKDOOR_KEYS keys."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    d, n, T = 8, 6, 32
+    x_true = rng.normal(size=(n, d))
+    ws = [rng.normal(size=(d,)) for _ in range(T)]
+    zs = [w @ x_true.T for w in ws]
+    rma_tig = privacy.reverse_multiplication_from_transcript(
+        t_tig, eta=5e-2, colluders=(0, 1))
+    rma_zoo = privacy.reverse_multiplication_from_transcript(
+        t_aligned, eta=5e-2, colluders=(0, 1))
+    backdoor = [privacy.replay_backdoor_attack(
+        t_zoo, lr=5e-2, mu=1e-3, w_dim=4096, key=k) for k in keys]
+    return {
+        "msgs": {"zoo": len(t_zoo), "tig": len(t_tig)},
+        "kinds": {"zoo": sorted(t_zoo.kinds()), "tig": sorted(t_tig.kinds())},
+        "feature_inference": privacy.feature_inference_from_transcript(
+            t_zoo, x_dim=PRIVACY_D // PRIVACY_Q),
+        "param_leak_recovery_err": privacy.feature_inference_with_grads(
+            ws, zs, x_true),
+        "label_tig": privacy.label_inference_attack(t_tig, y, m=0),
+        "label_zoo": privacy.label_inference_attack(t_zoo, y, m=0),
+        "uploads_zoo": privacy.label_inference_from_uploads(t_zoo, y),
+        "rma_tig": {k: rma_tig.get(k) for k in ("feasible", "round",
+                                                 "reason")},
+        "rma_tig_recovered": rma_tig.get("recovered"),
+        "rma_zoo": {k: rma_zoo.get(k) for k in ("feasible", "reason")},
+        "backdoor_tig": privacy.replay_backdoor_attack(
+            t_tig, lr=5e-2, mu=1e-3, w_dim=4096),
+        "backdoor_zoo": backdoor,
+        "exposure": {"zoo": privacy.exposure_from_transcript(t_zoo),
+                     "tig": privacy.exposure_from_transcript(t_tig)},
+        "exposure_report": {f: privacy.exposure_report(f)
+                            for f in ("zoo-vfl", "tig", "tg")},
+    }
+
+
+def audits_agree(a, b, rtol) -> bool:
+    """Two runs of ``audit_numbers``: accuracies, counts, kinds, flags and
+    reasons exact; the recovered RMA features, the backdoor's cosines and
+    deviation norms within ``rtol``. The deviation scales with the
+    difference of two recorded losses over mu, so it carries their float
+    order's ulps divided by mu; the cosine does not depend on its scale."""
+    import numpy as np
+    exact = ("msgs", "kinds", "feature_inference", "label_tig", "label_zoo",
+             "uploads_zoo", "rma_tig", "rma_zoo", "backdoor_tig",
+             "exposure", "exposure_report")
+    if any(a[k] != b[k] for k in exact):
+        return False
+    if not np.allclose(a["rma_tig_recovered"], b["rma_tig_recovered"],
+                       rtol=rtol, atol=rtol):
+        return False
+    return len(a["backdoor_zoo"]) == len(b["backdoor_zoo"]) and all(
+        x["observable"] == y["observable"]
+        and x["direction_control"] == y["direction_control"]
+        and abs(x["cos_to_target"] - y["cos_to_target"]) <= 1e-5
+        and abs(x["deviation_norm"] - y["deviation_norm"])
+        <= rtol * abs(y["deviation_norm"])
+        for x, y in zip(a["backdoor_zoo"], b["backdoor_zoo"]))
+
+
+def audit_phase(dev, serial_ms):
+    """bench_privacy's audits on transcripts recorded on the card, against
+    the same audits on the CPU port's; then the TIG baseline on the D7 FCN
+    at full width (module docstring, phase 10)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PaperFCNConfig, VFLConfig
+    from repro_torch.core import privacy
+    from repro_torch.core.tig import HostTIGTrainer
+    from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.core.wire import RecordingChannel
+    from repro_torch.utils import prng
+
+    keys = [prng.key(s) for s in range(BACKDOOR_KEYS)]
+    numbers = {}
+    for d in (dev, "cpu"):
+        t_zoo, t_tig, y = record_transcripts(d)
+        numbers[str(d)] = audit_numbers(privacy, t_zoo, t_tig,
+                                        record_aligned_zoo(d), y, keys)
+    card, cpu = numbers[str(dev)], numbers["cpu"]
+    # the card's f32 sums differ from the CPU's by ulps, which 24 ZOO
+    # rounds at mu 1e-3 grow to ~1e-5 of a loss (PERF.md §2)
+    if not audits_agree(card, cpu, rtol=1e-3):
+        raise AssertionError(f"audits on the card {card} != the CPU's {cpu}")
+    fi = card["feature_inference"]
+    summary = {
+        "tig_acc": card["label_tig"]["accuracy"],
+        "zoo_acc": card["label_zoo"]["accuracy"],
+        "zoo_ratio": fi["ratio"], "zoo_solvable": fi["solvable"],
+        "param_leak_recovery_err": card["param_leak_recovery_err"],
+        "rma_tig_feasible": card["rma_tig"]["feasible"],
+        "rma_zoo_feasible": card["rma_zoo"]["feasible"],
+        "rma_zoo_reason": card["rma_zoo"]["reason"],
+        "zoo_mean_cos_target": float(np.mean(
+            [b["cos_to_target"] for b in card["backdoor_zoo"]])),
+        "tig_direction_control": card["backdoor_tig"]["direction_control"]}
+    if not (summary["tig_acc"] == 1.0 and summary["zoo_acc"] == 0.5
+            and round(fi["ratio"], 3) == 0.358 and not fi["solvable"]
+            and summary["param_leak_recovery_err"] < 1e-9
+            and summary["rma_tig_feasible"]
+            and not summary["rma_zoo_feasible"]):
+        raise AssertionError(f"audits: {summary}")
+    log(f"[audit] transcripts recorded on the card, the same numbers as the "
+        f"CPU port's: {json.dumps(summary)}")
+
+    # TIG at D7 width: 8 parties x 98 features, batch 2048
+    q, batch = 8, 2048
+    Xp, y, spec, _ = d7_data(q)
+    model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
+                                         num_classes=spec.classes,
+                                         num_parties=q))
+    rec = RecordingChannel()
+    zero_launches()
+    tr = HostTIGTrainer(model, VFLConfig(num_parties=q, lr_party=2e-2,
+                                         lr_server=1e-2),
+                        Xp, y, batch_size=batch, seed=0, channel=rec,
+                        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = tr.run(TIG_ROUNDS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (TIG_ROUNDS * q)
+    launches = read_launches()
+    first, last = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
+    updates = TIG_ROUNDS * q
+    if len(losses) != updates or not all(math.isfinite(h) for h in losses) \
+            or not last < first:
+        raise AssertionError(f"TIG D7 losses {losses}")
+    if rec.bytes_by_kind != {"c_up": updates * batch * 4,
+                             "grad_down": updates * batch * 4,
+                             "loss_down": updates * 4}:
+        raise AssertionError(f"TIG D7 bytes {rec.bytes_by_kind}")
+    want = {name: 0 for name in RUNTIME_PARTY_ROUND}
+    want["prng_draw"] = fcn_init_draws(q)
+    if launches != want:
+        raise AssertionError(f"TIG D7 launches {launches}, want {want}")
+    log(f"[audit] TIG on the D7 FCN, {updates} party rounds of batch "
+        f"{batch}: loss {first:.4f} -> {last:.4f}, {ms:.3f} ms per TIG "
+        f"round (the fused defended ZOO round: {serial_ms:.3f} ms), "
+        f"grad_down {batch * 4} B a round, launches {launches}")
+    return {"audits": summary, "tig_ms_per_round": ms,
+            "zoo_ms_per_round": serial_ms, "tig_loss_first": first,
+            "tig_loss_last": last, "tig_launches": launches}
+
 # ------------------------------------------------------------ vfl-zoo phase --
 
 ZOO_STEPS = 5
@@ -1685,6 +2247,7 @@ def zoo_split(dev):
     return split
 
 
+@functools.lru_cache(maxsize=1)
 def d7_data(q):
     from repro_torch.data.synthetic import make_paper_dataset
     from repro_torch.data.vertical import pad_party_views, vertical_partition
@@ -1890,6 +2453,20 @@ def profile_phase(dev, cell):
     log(json.dumps({"profile": out}))
 
 
+class PhaseClock:
+    """Host seconds of each phase, from the end of the previous one."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        self.t = now
+        log(f"[time] {name}: {self.laps[name]:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1927,18 +2504,31 @@ def main() -> int:
         for cell in ("d7", "async", "scan", "zoo"):
             profile_phase(dev, cell)
         return 0
+    clock = PhaseClock()
     timed, worst = kernel_phase(dev, int_rate)
     timed["prng_draw"], worst["prng_draw"] = draw_phase(dev, int_rate)
     timed["dual_matmul"], worst["dual_matmul"] = dual_matmul_phase(dev)
     timed["flash_attention"], worst["flash_attention"] = flash_phase(dev)
-    launches, main_stats = main_path_phase(dev)
+    clock.lap("kernels")
+    launches, blocks, main_stats = main_path_phase(dev)
     log(json.dumps({"main_path": main_stats}))
+    clock.lap("main")
     zoo_launches, zoo_stats = zoo_phase(dev)
     log(json.dumps({"vfl_zoo": zoo_stats}))
     launches["flash_attention"] = zoo_launches["flash_attention"]
+    clock.lap("vfl_zoo")
     log(json.dumps({"async": async_phase(dev)}))
+    clock.lap("async")
     log(json.dumps({"scan": scan_phase(dev)}))
+    clock.lap("scan")
     log(json.dumps({"runtime": runtime_phase(dev)}))
+    clock.lap("runtime")
+    log(json.dumps({"serving": serving_phase(dev, blocks)}))
+    clock.lap("serving")
+    log(json.dumps({"audits": audit_phase(
+        dev, main_stats["fused_ms_per_round"])}))
+    clock.lap("audits")
+    log(json.dumps({"phase_s": clock.laps}))
 
     sources = {
         "defended_encode": ("src/repro_torch/kernels/csrc/defended_encode.cu",

@@ -3,7 +3,8 @@ the architecture registry: ``get_config("qwen1.5-0.5b")`` returns the full
 config, ``get_config(..., reduced=True)`` the smoke-test variant."""
 from repro_torch.configs.base import (NETWORK_PROFILES, DPConfig,
                                       ModelConfig, NetworkConfig,
-                                      RuntimeConfig, VFLConfig)
+                                      RuntimeConfig, ServingConfig,
+                                      VFLConfig)
 from repro_torch.configs.dense import (DEEPSEEK_7B, MINICPM_2B, QWEN15_05B,
                                        YI_34B)
 from repro_torch.configs.paper_models import PaperFCNConfig, PaperLRConfig
@@ -29,4 +30,4 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
 
 __all__ = ["ARCH_IDS", "get_config", "ModelConfig", "DPConfig", "VFLConfig",
            "NetworkConfig", "NETWORK_PROFILES", "PaperFCNConfig",
-           "PaperLRConfig", "RuntimeConfig"]
+           "PaperLRConfig", "RuntimeConfig", "ServingConfig"]

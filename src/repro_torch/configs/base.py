@@ -269,3 +269,21 @@ class RuntimeConfig:
     #                               port's runtime (tracing not ported)
     monitor: bool = False         # flag: --monitor — refused by the port's
     #                               runtime (tracing not ported)
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Knobs of the federated inference front end (serving/federated.py).
+
+    One engine step serves every occupied slot with ONE ``serve_down``
+    query per party and one batched ``c_up`` answer back: per-message
+    latency and codec overhead amortize over ``slots`` concurrent
+    requests.
+    """
+    requests: int = 0             # flag: --serve — how many inference
+    #                               requests to serve (0 = serving off)
+    slots: int = 8                # flag: --serve-batch — concurrent
+    #                               request slots = max wire batch B
+    cache_entries: int = 2048     # flag: --serve-cache — per-party LRU
+    #                               answer-cache capacity, keyed
+    #                               (sample id, params version)

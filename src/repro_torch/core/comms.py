@@ -87,3 +87,37 @@ def validate_measured(measured: RoundComms, batch: int, c_dim: int = 1,
             f"(batch={batch}, c_dim={c_dim}, codec={codec}, "
             f"K={num_directions})")
     return analytic
+
+
+def serving_round_by_kind(batch: int, parties: int, codec: str = "f32",
+                          c_dim: int = 1) -> dict:
+    """One federated inference round over a batch of B samples
+    (serving/federated.py): the server sends every party the int32
+    sample-id vector as one ``serve_down`` (4 bytes per id), and each party
+    answers with ONE batched ``c_up`` carrying its B c values through the
+    up-link codec. Per-message codec overhead and latency are paid q times
+    per step, not q times per prediction."""
+    per_up = batch * c_dim * CODEC_VALUE_BYTES[codec] \
+        + CODEC_MSG_OVERHEAD[codec]
+    return {"serve_down": parties * batch * 4, "c_up": parties * per_up}
+
+
+def serving_bytes_per_prediction(batch: int, parties: int,
+                                 codec: str = "f32",
+                                 c_dim: int = 1) -> float:
+    """Analytic wire bytes per served prediction at batch size B."""
+    by = serving_round_by_kind(batch, parties, codec, c_dim)
+    return sum(by.values()) / batch
+
+
+def validate_serving_channel(channel, expected: dict) -> dict:
+    """Check a serving channel's MEASURED per-kind byte counters against
+    the analytic expectation (accumulated per crossing by the engine, so it
+    stays exact under answer-cache hits and partial batches); returns the
+    expectation or raises with both sides."""
+    measured = {k: channel.bytes_by_kind.get(k, 0) for k in expected}
+    if measured != expected:
+        raise AssertionError(
+            f"serving wire drift: measured {measured} != analytic "
+            f"{expected}")
+    return expected

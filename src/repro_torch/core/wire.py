@@ -272,6 +272,27 @@ class NetworkChannel(Channel):
                 t += self._rng.uniform(0.0, cfg.jitter_s)
         return t * self._link_scale(msg)
 
+    def measure_round_s(self, msgs: Iterable[Message]) -> float:
+        """Simulated time of ONE protocol round under Table 3's charging
+        model: the round's messages are pipelined on the link, so latency
+        is paid once and the payloads stream back to back (``send`` charges
+        latency per message instead). Accounts the messages and advances
+        the clock; the round time is booked on the first message's link,
+        so sum(clock_by_link) == time_s stays true."""
+        msgs = list(msgs)
+        if not msgs:
+            return 0.0
+        n = sum(m.nbytes for m in msgs)
+        scale = max(self._link_scale(m) for m in msgs)
+        t = (self.config.latency_s + n / self.config.bandwidth_Bps) * scale
+        if self.config.jitter_s:
+            with self._lock:
+                t += self._rng.uniform(0.0, self.config.jitter_s)
+        for m in msgs[1:]:
+            self._account(m, 0.0)
+        self._account(msgs[0], t)
+        return t
+
 
 class RecordingChannel(Channel):
     """Wraps another channel (in-memory by default) and records every
@@ -337,3 +358,35 @@ class ReplayChannel(Channel):
 
     def exhausted(self) -> bool:
         return self._cursor == len(self._recorded)
+
+
+# ----------------------------------------------------- canonical rounds ---
+
+def canonical_round(framework: str, rnd: int = 0, m: int = 0,
+                    batch: int = 1, c_dim: int = 1,
+                    d_l: int = 1) -> list[Message]:
+    """The per-round message pattern each framework structurally emits,
+    the wire-level statement of paper Table 1/3. Payloads are zeros of the
+    right SHAPE; sizes and kinds are what matter (exposure and PRCO are
+    functions of kinds and bytes, never of values)."""
+    p, s = party(m), SERVER
+    c = np.zeros((batch, c_dim) if c_dim > 1 else (batch,), np.float32)
+    if framework == "zoo-vfl":
+        return [Message.make("c_up", p, s, rnd, c),
+                Message.make("c_hat_up", p, s, rnd, c),
+                Message.make("loss_down", s, p, rnd, (0.0, 0.0))]
+    if framework == "tig":
+        return [Message.make("c_up", p, s, rnd, c),
+                Message.make("grad_down", s, p, rnd, c),
+                Message.make("loss_down", s, p, rnd, (0.0,))]
+    if framework == "tg":
+        # the up-link is the party's d_l-dim output/update block, typed
+        # c_up (KINDS has no gradient-up kind: the gradient exposure Table 1
+        # cares about rides the down-link, grad_down and the successive
+        # param_down snapshots, which reveal the applied local gradient as
+        # (w_t - w_{t-1}) / lr)
+        blk = np.zeros((d_l,), np.float32)
+        return [Message.make("c_up", p, s, rnd, blk),
+                Message.make("grad_down", s, p, rnd, blk),
+                Message.make("param_down", s, p, rnd, blk)]
+    raise ValueError(f"unknown framework {framework!r}")

@@ -33,9 +33,21 @@ release with clip-then-noise, the noise multiplier calibrated by the RDP
 accountant (dp/accountant.py) for ``--steps`` rounds, as the reference's
 launcher does. The coherence rules of the flags are the reference's.
 
+``--network lan|wan|straggler`` prices the in-memory vfl-zoo run's
+per-round payloads on a simulated NetworkChannel profile and reports the
+simulated transport time (``wire_s``) beside the losses.
+
+``--serve N`` serves N inference requests through the federated serving
+engine (serving/federated.py) instead of training, on the LR problem of
+``d_model`` features that ``--transport tcp`` trains: in-process parties
+on the memory transport (priced by ``--network`` when given), or party
+processes over sockets with ``--transport tcp`` (``--ckpt-dir`` serves
+the checkpointed blocks). ``--serve-batch`` sets the slots, the largest
+wire batch, and ``--serve-cache`` the per-party answer cache.
+
 The parser takes the reference's whole flag set. What the port does not
 run yet is refused with an error: ``--mode lm``, ``--data-parallel``,
-``--network``, ``--serve``, ``--trace`` and ``--monitor``.
+``--trace`` and ``--monitor``.
 """
 from __future__ import annotations
 
@@ -154,8 +166,26 @@ def parse_args(argv=None):
     if args.monitor and not args.trace:
         p.error("--monitor scores the live trace stream; it requires "
                 "--trace DIR")
-    if args.serve is None and (args.serve_batch is not None
-                               or args.serve_cache is not None):
+    if args.serve is not None:
+        if args.mode != "vfl-zoo":
+            p.error("--serve drives the federated serving round; it "
+                    "requires --mode vfl-zoo")
+        if args.serve <= 0:
+            p.error("--serve must be a positive request count")
+        if args.dropout_at is not None:
+            p.error("--dropout-at scripts a TRAINING fault; the serving "
+                    "path has no round schedule to crash at")
+        if args.straggler_s is not None:
+            p.error("--straggler-s scripts a TRAINING fault; the serving "
+                    "path has no round schedule to stall")
+        if args.resume:
+            p.error("--resume restores training state; serving reads "
+                    "checkpoints directly via --ckpt-dir")
+        if args.dp_epsilon is not None:
+            p.error("--dp-epsilon defends training releases keyed by "
+                    "round; the serving answer is a deterministic keyless "
+                    "release: serve undefended")
+    elif args.serve_batch is not None or args.serve_cache is not None:
         p.error("--serve-batch/--serve-cache size the serving engine; they "
                 "require --serve")
     if args.resume and not args.ckpt_dir:
@@ -176,8 +206,6 @@ def parse_args(argv=None):
         (args.mode != "vfl-zoo", f"--mode {args.mode} (first-order Adam "
          "needs a backward pass)"),
         (args.data_parallel != 1, "--data-parallel"),
-        (args.network is not None, "--network"),
-        (args.serve is not None, "--serve"),
         (args.trace is not None or args.monitor, "--trace/--monitor"),
     ]
     for hit, what in refused:
@@ -281,15 +309,119 @@ def run_tcp(args, cfg, device, log) -> dict:
     return out
 
 
+def run_serve(args, cfg, device, log) -> dict:
+    """--serve N: federated inference serving. Builds the runtime problem
+    spec that --transport tcp trains, then serves N requests through
+    serving/federated.py: in-process party backends on the memory
+    transport (priced by --network when given), or party processes over
+    sockets on tcp (with blocks restored from --ckpt-dir when given).
+    Returns the engine's metrics, "served" as a float (the reference's
+    return value), the transport and the device."""
+    from repro_torch.configs import NETWORK_PROFILES, ServingConfig
+
+    sc = ServingConfig(
+        requests=args.serve,
+        slots=args.serve_batch if args.serve_batch is not None
+        else ServingConfig.slots,
+        cache_entries=args.serve_cache if args.serve_cache is not None
+        else ServingConfig.cache_entries)
+    spec = {"kind": "lr", "parties": args.parties,
+            "features": cfg.d_model, "samples": max(64, args.batch_size * 8),
+            "batch": args.batch_size, "seed": args.seed,
+            "vfl": {"mu": args.mu, "lr_party": args.lr,
+                    "lr_server": args.lr / args.parties}}
+    if args.codec != "f32":
+        spec["vfl"]["codec"] = args.codec
+    rng = np.random.default_rng(args.seed)
+    sample_ids = rng.integers(0, spec["samples"], sc.requests)
+
+    if args.transport == "tcp":
+        from repro_torch.configs import RuntimeConfig
+        from repro_torch.runtime.serving import run_tcp_serving
+        cfg_rt = RuntimeConfig(deadline_s=max(300.0,
+                                              120.0 + 0.1 * sc.requests))
+        res = run_tcp_serving(spec, sample_ids, cfg=cfg_rt, slots=sc.slots,
+                              cache_entries=sc.cache_entries,
+                              ckpt_root=args.ckpt_dir, device=device)
+        met = res["metrics"]
+        log.log(sc.requests, transport="tcp", served=met["served"],
+                steps=met["steps"], cache_hits=met["cache_hits"],
+                bytes_per_prediction=met["bytes_per_prediction"])
+        return {**met, "served": float(met["served"]), "transport": "tcp",
+                "versions": [res["parties"][m]["version"]
+                             for m in range(args.parties)],
+                "device": str(device)}
+
+    from repro_torch.core.wire import NetworkChannel
+    from repro_torch.runtime.problem import build_problem
+    from repro_torch.serving.federated import (FederatedServingEngine,
+                                               ServeRequest)
+
+    prob = build_problem(spec, device)
+    channel = (NetworkChannel(NETWORK_PROFILES[args.network],
+                              seed=args.seed) if args.network else None)
+    eng = FederatedServingEngine.from_problem(
+        prob, channel=channel, slots=sc.slots,
+        cache_entries=sc.cache_entries)
+    for i, sid in enumerate(sample_ids):
+        eng.submit(ServeRequest(rid=i, sample_id=int(sid)))
+    eng.run()
+    eng.validate_wire()      # measured bytes == analytic, every run
+    met = eng.metrics()
+    extra = ({"network": args.network, "wire_s": met["wire_s"],
+              "requests_per_s": met["requests_per_s"],
+              "p50_s": met["p50_s"], "p99_s": met["p99_s"]}
+             if args.network else {})
+    log.log(sc.requests, transport="memory", served=met["served"],
+            steps=met["steps"], cache_hits=met["cache_hits"],
+            bytes_per_prediction=met["bytes_per_prediction"], **extra)
+    return {**met, "served": float(met["served"]), "transport": "memory",
+            "device": str(device)}
+
+
+def price_network(args, cfg, vfl) -> dict:
+    """--network on the in-memory vfl-zoo run: the scan trainer exchanges
+    the host executor's per-round payloads, so price those (c, K c_hats
+    and the loss_down of one party a step) on the chosen NetworkChannel
+    profile, pipelined as one round, and report the simulated transport
+    time beside the losses."""
+    from repro_torch.configs import NETWORK_PROFILES
+    from repro_torch.core.exchange import ZOExchange
+    from repro_torch.core.wire import SERVER, Message, NetworkChannel
+    from repro_torch.core.wire import party as wire_party
+
+    ex = ZOExchange.from_config(vfl)
+    ch = NetworkChannel(NETWORK_PROFILES[args.network], seed=args.seed)
+    nb = ex.codec.nbytes(np.zeros((args.batch_size, args.seq_len,
+                                   cfg.d_model // args.parties)))
+    K = vfl.num_directions
+    for s in range(args.steps):
+        p0 = wire_party(s % args.parties)
+        ch.measure_round_s(
+            [Message.make("c_up", p0, SERVER, s, None, nbytes=nb)]
+            + [Message.make("c_hat_up", p0, SERVER, s, None, nbytes=nb)
+               for _ in range(K)]
+            + [Message.make("loss_down", SERVER, p0, s,
+                            tuple([0.0] * (1 + K)))])
+    return {"network": args.network, "wire_s": ch.time_s,
+            "wire_up_mb": ch.up_bytes / 1e6,
+            "wire_down_bytes": ch.down_bytes}
+
+
 def main(argv=None) -> dict:
     """Run the launcher. vfl-zoo in memory returns {"h": per-step losses,
     "step_s": per-step host seconds (each ends when h reaches the host),
     "setup_s": seconds of data and state set-up, "start_step": the step
-    resumed from (0 without --resume), "device": the torch device}; tcp
-    returns the federation's losses and counters (``run_tcp``)."""
+    resumed from (0 without --resume), "device": the torch device}, plus
+    the priced wire (``price_network``) with --network; tcp returns the
+    federation's losses and counters (``run_tcp``); --serve the serving
+    engine's metrics (``run_serve``)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.serve is not None:
+        return run_serve(args, cfg, device,
+                         MetricLogger(f"serve:{args.arch}:vfl-zoo"))
     if args.transport == "tcp":
         # the LR problem pads its d_model features to q equal blocks
         return run_tcp(args, cfg, device,
@@ -345,6 +477,10 @@ def main(argv=None) -> dict:
         step_s.append(time.perf_counter() - t0)
         if s % args.log_every == 0 or s == args.steps - 1:
             log.log(start_step + s, h=losses[-1], step_s=step_s[-1])
+    wire = {}
+    if args.network:
+        wire = price_network(args, cfg, vfl)
+        log.log(args.steps, **wire)
     if args.ckpt_dir:
         # a resumed run commits PAST the restored step, or the next resume
         # would restore the earlier checkpoint and drop this run's work
@@ -353,7 +489,7 @@ def main(argv=None) -> dict:
                          "hist": state.hist},
                         {"arch": args.arch, "mode": "vfl-zoo"})
     return {"h": losses, "step_s": step_s, "setup_s": setup_s,
-            "start_step": start_step, "device": str(device)}
+            "start_step": start_step, "device": str(device), **wire}
 
 
 if __name__ == "__main__":
