@@ -114,7 +114,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parent launches nothing during a federation, and no process is left
    alive after one. Host-clock ms per party update of (a) and (c) beside
    the in-process ``run_serial``'s.
-8. At the end, after 9 and 10: the ``{"kernels": [...]}`` line, the card
+8. At the end, after 9 to 11: the ``{"kernels": [...]}`` line, the card
    line, and last ``{"ok": true, "device": {...}}``.
 9. Serving: federated inference (``serving.federated``, and over TCP
    ``runtime.run_tcp_serving``) on the runtime phase's D7 FCN without DP
@@ -145,12 +145,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``HostTIGTrainer`` on the D7 FCN at full width (8 parties, batch 2048,
    10 rounds): finite, falling losses, grad_down exactly 2048 x 4 bytes a
    round, ms per TIG round beside the fused ZOO round's.
+11. Traced federation (``repro_torch/obs``): the runtime phase's
+   ``run_reference`` again with a tracer in this process, bitwise the
+   untraced one (losses, params, payloads), launches exact (a fused D7
+   round each update, the data's 3 draws and the initial weights'); the
+   serial TCP federation again, traced and monitored (the collector in
+   this process), bitwise the untraced (a) (losses, params, bytes, socket
+   bytes), launches exact in every process, no alert, every process
+   exiting with 0; TCP serving of 256 requests at slots 64 from the
+   checkpointed blocks, traced and monitored, bitwise the in-memory
+   engine, launches exact. Every merged trace has its chains complete and
+   its wire records equal to the analytic bytes (both sides over TCP).
+   Prints p50 and p99 of ``server_process``, ``server_handle``,
+   ``party_prepare``, ``party_round`` and ``party_wait_reply``, the TCP
+   ``server_process`` split into observe, handle and send (by the
+   timestamps of the ``server_handle`` span inside it), and ms per party
+   update traced against untraced, in memory and over TCP.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
 round and the async experiment's configuration, 4 steps of the scan
-trainer's defended D7 cell (asyrevel, K = 1), and one step of the
-vfl-zoo cell, with ``torch.profiler``,
+trainer's defended D7 cell (asyrevel, K = 1), one step of the
+vfl-zoo cell, and 128 predictions of the serving cell in memory at slots
+8 (after 64 of warm-up), with ``torch.profiler``,
 printing the device-busy share, the kernels by device time, the
 flash_attention kernels' device time and launches, and what the draws
 cost in that trace: each ``prng.bits`` and ``prng.sample_direction``
@@ -1364,7 +1381,9 @@ def runtime_phase(dev, spec=RUNTIME_SPEC, rounds=RUNTIME_ROUNDS):
     checkpoint, bitwise equal to (a); (c) the arrival schedule with tau = 1
     and party 7 stalling 0.2 s a send. Every process reports its device
     and its launches, which must be exact (``runtime_launches``); the
-    checks of launches come last, after all three runs."""
+    checks of launches come last, after all three runs. Returns the
+    phase's numbers and the untraced runs the traced phase is held to:
+    (a) and ``run_reference``'s (trainer, result, channel)."""
     import tempfile
 
     import numpy as np
@@ -1552,7 +1571,10 @@ def runtime_phase(dev, spec=RUNTIME_SPEC, rounds=RUNTIME_ROUNDS):
                   + sum(p["launches"][name] for p in r["parties"].values())
                   for _, r, _ in launch_checks)
         for name in RUNTIME_PARTY_ROUND}
-    return stats
+    # the untraced runs the traced phase is held to
+    twins = {"serial": res_a, "reference": (tr, ref, rec),
+             "ms_per_update": ms_a, "inprocess_ms_per_update": ms_ref}
+    return stats, twins
 
 
 # ------------------------------------------------------------ serving phase --
@@ -1836,6 +1858,278 @@ def _serving_runs(dev, blocks, spec, q, ids, root):
         f"wire's clock, not the card's), {wan['bytes_per_prediction']} "
         f"B/prediction; --transport tcp served {tcp['served']:.0f} on "
         f"{tcp['device']}")
+    return stats
+
+
+# ------------------------------------------------------------- traced phase --
+
+# the spans whose p50 and p99 the phase prints, and the requests of its
+# traced TCP serving run (4 steps at slots 64)
+TRACED_SPANS = ("server_process", "server_handle", "party_prepare",
+                "party_round", "party_wait_reply")
+TRACED_SERVE_REQUESTS = 256
+
+
+def pct(xs, q):
+    """The q-quantile of xs as the reference's collector takes it (the
+    element at round(q (n - 1)) of the sorted values)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def span_table(recs):
+    """p50 and p99, ms, of each of TRACED_SPANS in a merged trace, over
+    the rounds after each party's first (start-up excluded; a
+    ``party_prepare`` carries no round, so all of them)."""
+    out = {}
+    for name in TRACED_SPANS:
+        ds = [r["dur"] * 1e3 for r in recs if r["ev"] == "span"
+              and r["name"] == name and r.get("round", 1) >= 1]
+        if ds:
+            out[name] = {"n": len(ds), "p50": pct(ds, 0.5),
+                         "p99": pct(ds, 0.99)}
+    return out
+
+
+def process_split(recs):
+    """``server_process`` split by the ``server_handle`` span inside it
+    (the same process, party and round): observe (admission and the
+    up-link's decode into Messages, up to the handle), handle (decode, the
+    server's step, ``float(h)``, the reply's channel send) and send (the
+    reply onto the socket, the cache, a snapshot), ms, p50 and mean over
+    the rounds after each party's first."""
+    handles = {(r["pid"], r["party"], r["round"]): r for r in recs
+               if r["ev"] == "span" and r["name"] == "server_handle"}
+    rows = []
+    for r in recs:
+        if r["ev"] == "span" and r["name"] == "server_process" \
+                and r["round"] >= 1:
+            h = handles[(r["pid"], r["party"], r["round"])]
+            rows.append((h["ts"] - r["ts"], h["dur"],
+                         r["ts"] + r["dur"] - h["ts"] - h["dur"]))
+    return {k: {"p50": pct([x[i] * 1e3 for x in rows], 0.5),
+                "mean": 1e3 * sum(x[i] for x in rows) / len(rows)}
+            for i, k in enumerate(("observe", "handle", "send"))}
+
+
+def sent_bytes(recs, observed=False):
+    """Bytes by kind of a merged trace's wire records, send side (or the
+    receivers' observed side)."""
+    out = {}
+    for r in recs:
+        if r["ev"] == "wire" and bool(r["observed"]) == observed:
+            out[r["kind"]] = out.get(r["kind"], 0) + r["nbytes"]
+    return out
+
+
+def traced_phase(dev, twins, blocks, spec=RUNTIME_SPEC,
+                 rounds=RUNTIME_ROUNDS, serving_spec=SERVING_SPEC):
+    """The federation traced through repro_torch/obs on the card (module
+    docstring, phase 11): ``run_reference`` in this process, traced; the
+    serial TCP federation, traced and monitored; TCP serving, traced and
+    monitored. Each is held to its untraced twin bit for bit (``twins``,
+    from the runtime phase on the same ``spec`` and ``rounds``; the
+    serving phase's ``blocks``), with exact launches in every process;
+    returns the phase's numbers."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        return _traced_runs(dev, twins, blocks, root, spec, rounds,
+                            serving_spec)
+
+
+def _traced_runs(dev, twins, blocks, root, spec, rounds, serving_spec):
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import RuntimeConfig
+    from repro_torch.core.wire import RecordingChannel
+    from repro_torch.obs.collect import chain_completeness, load_dir_stats
+    from repro_torch.runtime import (history_losses, ms_per_update,
+                                     run_federation, run_reference,
+                                     serial_levels)
+    from repro_torch.runtime.serving import run_tcp_serving
+
+    q, batch = spec["parties"], spec["batch"]
+    analytic = {"c_up": rounds * q * (batch + 4),
+                "c_hat_up": rounds * q * (batch + 4),
+                "loss_down": rounds * q * 8}
+    stats = {}
+
+    def merged(d, what, chains):
+        recs, st = load_dir_stats(d)
+        if st["dropped_lines"] or not recs:
+            raise AssertionError(f"traced {what}: merge {st}")
+        if chains is not None and \
+                chain_completeness(recs) != (chains, chains, 1.0):
+            raise AssertionError(f"traced {what}: chains "
+                                 f"{chain_completeness(recs)}")
+        return recs
+
+    # (a) run_reference in this process, traced, against the runtime
+    # phase's untraced run_reference
+    tr0, ref0, rec0 = twins["reference"]
+    d = os.path.join(root, "memory")
+    rec = RecordingChannel()
+    zero_launches()
+    obs.configure(d, role="main")
+    try:
+        t0 = time.perf_counter()
+        tr, ref = run_reference(spec, rounds, channel=rec, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        obs.configure(None)
+    launches = read_launches()
+    want = {k: v * rounds * q for k, v in D7_FUSED_ROUND.items()}
+    want["prng_draw"] += fcn_init_draws(q) + RUNTIME_DATA_DRAWS
+    if launches != want:
+        raise AssertionError(f"traced memory: launches {launches}, want "
+                             f"{want}")
+    if [h for _, h in ref.history] != [h for _, h in ref0.history] or \
+            dict(rec.bytes_by_kind) != dict(rec0.bytes_by_kind) or \
+            len(rec.transcript) != len(rec0.transcript) or not all(
+                payload_bits_equal(a.payload, b.payload)
+                for a, b in zip(rec.transcript, rec0.transcript)):
+        raise AssertionError("traced memory: != the untraced run_reference")
+    for m in range(q):
+        for k, v in tr.party_w[m].items():
+            if not torch.equal(v, tr0.party_w[m][k]):
+                raise AssertionError(f"traced memory: party {m} {k}")
+    for k, v in tr.server.w0.items():
+        if not torch.equal(v, tr0.server.w0[k]):
+            raise AssertionError(f"traced memory: server {k}")
+    recs = merged(d, "memory", rounds * q)
+    if sent_bytes(recs) != analytic:
+        raise AssertionError(f"traced memory: wire {sent_bytes(recs)}, "
+                             f"want {analytic}")
+    ms_t = ms_per_update(serial_levels(ref.history, q), q)
+    ms_u = twins["inprocess_ms_per_update"]
+    stats["memory"] = {"wall_s": wall, "ms_per_update": ms_t,
+                       "untraced_ms_per_update": ms_u,
+                       "overhead": ms_t / ms_u - 1,
+                       "records": len(recs), "spans_ms": span_table(recs)}
+    log(f"[traced] memory: run_reference traced, {rounds * q} updates, "
+        f"bitwise the untraced run (losses, params, payloads), launches "
+        f"exact, chains {rounds * q}/{rounds * q}, wire records = analytic "
+        f"{analytic}; {ms_t:.3f} ms per party update traced, {ms_u:.3f} "
+        f"untraced ({100 * (ms_t / ms_u - 1):+.1f}%), {len(recs)} records")
+    log(f"[traced] memory spans, ms: {json.dumps(span_table(recs))}")
+
+    # (b) the serial TCP federation traced and monitored, against the
+    # runtime phase's untraced serial run
+    res0 = twins["serial"]
+    d = os.path.join(root, "tcp")
+    zero_launches()
+    t0 = time.perf_counter()
+    res = run_federation(spec, rounds, cfg=RuntimeConfig(
+        deadline_s=900.0, trace_dir=d, monitor=True),
+        channel_kind="recording", device=dev)
+    wall = time.perf_counter() - t0
+    parent = read_launches()
+    _no_orphans(res, "traced")
+    if any(parent.values()):
+        raise AssertionError(f"traced tcp: the parent launched {parent}")
+    srv, srv0 = res["server"], res0["server"]
+    if not np.array_equal(history_losses(res), history_losses(res0)) or \
+            any(srv[k] != srv0[k] for k in (
+                "bytes_by_kind", "msgs_by_kind", "socket_bytes_in",
+                "socket_bytes_out")):
+        raise AssertionError("traced tcp: != the untraced serial run")
+    for m in range(q):
+        for k, v in res["parties"][m]["final_w"].items():
+            if not np.array_equal(v.view(np.int32), res0["parties"][m][
+                    "final_w"][k].view(np.int32)):
+                raise AssertionError(f"traced tcp: party {m} {k}")
+    for k, v in srv["w0"].items():
+        if not np.array_equal(v.view(np.int32),
+                              srv0["w0"][k].view(np.int32)):
+            raise AssertionError(f"traced tcp: server {k}")
+    if srv["launches"] != runtime_launches("server", srv["updates"]) or \
+            any(p["launches"] != runtime_launches("party", rounds)
+                for p in res["parties"].values()):
+        raise AssertionError(
+            f"traced tcp: launches {srv['launches']}, "
+            f"{[p['launches'] for p in res['parties'].values()]}")
+    mon = res["monitor"]
+    if mon["alerts"] or mon["flight_files"] or not mon["records"]:
+        raise AssertionError(f"traced tcp: monitor {mon}")
+    recs = merged(d, "tcp", rounds * q)
+    if not (sent_bytes(recs) == sent_bytes(recs, observed=True) == analytic
+            == srv["bytes_by_kind"]):
+        raise AssertionError(f"traced tcp: wire {sent_bytes(recs)}, "
+                             f"observed {sent_bytes(recs, observed=True)}, "
+                             f"want {analytic}")
+    ms_t = ms_per_update(srv["levels"], q)
+    ms_u = twins["ms_per_update"]
+    split = process_split(recs)
+    stats["tcp"] = {"wall_s": wall, "ms_per_update": ms_t,
+                    "untraced_ms_per_update": ms_u,
+                    "overhead": ms_t / ms_u - 1,
+                    "monitor_records": mon["records"],
+                    "records": len(recs), "spans_ms": span_table(recs),
+                    "server_process_split_ms": split}
+    log(f"[traced] tcp serial, traced and monitored: {q + 1} processes, "
+        f"bitwise the untraced run (losses, params, bytes, socket bytes), "
+        f"launches exact in every process, no alert, every process exited "
+        f"with 0, chains {rounds * q}/{rounds * q}, wire records = analytic "
+        f"on both sides; {ms_t:.3f} ms per party update traced, "
+        f"{ms_u:.3f} untraced ({100 * (ms_t / ms_u - 1):+.1f}%), "
+        f"{wall:.2f} s with start-up")
+    log(f"[traced] tcp spans, ms: {json.dumps(span_table(recs))}")
+    log(f"[traced] tcp server_process split, ms: {json.dumps(split)}")
+
+    # (c) TCP serving traced and monitored (the front end is this
+    # process), against the in-memory engine on the same blocks
+    for m, w in enumerate(blocks):
+        save_checkpoint(os.path.join(root, "ckpt", f"party{m}"),
+                        SERVING_CKPT_STEP, w, {"party": m})
+    ids = np.random.default_rng(0).integers(0, serving_spec["samples"],
+                                            TRACED_SERVE_REQUESTS)
+    eng = serving_engine(serving_spec, dev, os.path.join(root, "ckpt"), 64)
+    serve(eng, ids)
+    d = os.path.join(root, "serve")
+    zero_launches()
+    obs.configure(d, role="front")
+    try:
+        t0 = time.perf_counter()
+        res = run_tcp_serving(serving_spec, ids, cfg=RuntimeConfig(
+            deadline_s=600.0, trace_dir=d, monitor=True), slots=64,
+            ckpt_root=os.path.join(root, "ckpt"), device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        obs.configure(None)
+    parent = read_launches()
+    _no_orphans(res, "traced serving")
+    if [p for _, p in res["predictions"]] != predictions(eng):
+        raise AssertionError("traced serving: != the in-memory engine")
+    if parent != serving_launches("front", 0) or any(
+            p["launches"] != serving_launches("party",
+                                              p["msgs_by_kind"]["c_up"])
+            for p in res["parties"].values()):
+        raise AssertionError(f"traced serving: launches {parent}")
+    if res["monitor"]["alerts"] or res["monitor"]["flight_files"]:
+        raise AssertionError(f"traced serving: monitor {res['monitor']}")
+    recs = merged(d, "serving", None)
+    spans = {}
+    for r in recs:
+        if r["ev"] == "span":
+            spans.setdefault(r["name"], []).append(r["dur"] * 1e3)
+    if len(spans.get("serve_answer", ())) != \
+            res["channel"].msgs_by_kind["c_up"] or \
+            len(spans.get("serve_step", ())) != res["metrics"]["steps"]:
+        raise AssertionError(f"traced serving: spans "
+                             f"{ {k: len(v) for k, v in spans.items()} }")
+    stats["serving"] = {"wall_s": wall, "requests": len(ids),
+                        "steps": res["metrics"]["steps"],
+                        "spans_ms": {k: {"n": len(v), "p50": pct(v, 0.5),
+                                         "p99": pct(v, 0.99)}
+                                     for k, v in spans.items()}}
+    log(f"[traced] tcp serving, traced and monitored: {len(ids)} requests "
+        f"at slots 64, predictions bitwise the in-memory engine, launches "
+        f"exact in every process, no alert; spans, ms: "
+        f"{json.dumps(stats['serving']['spans_ms'])}; {wall:.2f} s")
     return stats
 
 
@@ -2362,10 +2656,27 @@ def _scan_workload(dev):
     return run, steps, "step"
 
 
+def _serve_workload(dev):
+    """The serving cell in memory at slots 8 (``ServingConfig``'s
+    default): the runtime cell's FCN without DP (fused int8), blocks from
+    the seed, 64 requests of warm-up, then 128 requests of other ids (16
+    steps, no cache hit)."""
+    import numpy as np
+    from repro_torch.runtime.problem import build_problem
+    from repro_torch.serving.federated import FederatedServingEngine
+
+    eng = FederatedServingEngine.from_problem(build_problem(SERVING_SPEC,
+                                                            dev), slots=8)
+    ids = np.random.default_rng(0).permutation(SERVING_SPEC["samples"])
+    serve(eng, ids[:64])
+    return (lambda: serve(eng, ids[64:192], first_rid=64)), 128, \
+        "prediction"
+
+
 def profile_phase(dev, cell):
     """Trace one cell's workload with ``torch.profiler``: 2 serial rounds of
-    a D7 FCN cell ("d7", "async"), 4 scan-trainer steps ("scan") or one
-    vfl-zoo step ("zoo"). Each
+    a D7 FCN cell ("d7", "async"), 4 scan-trainer steps ("scan"), one
+    vfl-zoo step ("zoo") or 128 served predictions ("serve"). Each
     ``prng.bits`` and ``prng.sample_direction`` call is a
     ``record_function`` span; a direction's span holds its bits span."""
     import torch
@@ -2373,7 +2684,8 @@ def profile_phase(dev, cell):
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.utils import prng
 
-    run, units, unit = {"zoo": _zoo_workload, "scan": _scan_workload}.get(
+    run, units, unit = {"zoo": _zoo_workload, "scan": _scan_workload,
+                        "serve": _serve_workload}.get(
         cell, lambda _: _fcn_workload(cell))(dev)
 
     plain = {name: getattr(prng, name.split(".")[1]) for name in PROFILE_SPANS}
@@ -2424,6 +2736,7 @@ def profile_phase(dev, cell):
            f"ms_per_{unit}": wall_ms / units,
            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
            "device_launches": launches,
+           f"device_launches_per_{unit}": launches / units,
            "flash_attention": {
                "device_ms": sum(e.self_device_time_total
                                 for e in flash) / 1e3,
@@ -2501,7 +2814,7 @@ def main() -> int:
     draw_sass()
 
     if "--profile" in sys.argv[1:]:
-        for cell in ("d7", "async", "scan", "zoo"):
+        for cell in ("d7", "async", "scan", "zoo", "serve"):
             profile_phase(dev, cell)
         return 0
     clock = PhaseClock()
@@ -2521,10 +2834,13 @@ def main() -> int:
     clock.lap("async")
     log(json.dumps({"scan": scan_phase(dev)}))
     clock.lap("scan")
-    log(json.dumps({"runtime": runtime_phase(dev)}))
+    runtime_stats, twins = runtime_phase(dev)
+    log(json.dumps({"runtime": runtime_stats}))
     clock.lap("runtime")
     log(json.dumps({"serving": serving_phase(dev, blocks)}))
     clock.lap("serving")
+    log(json.dumps({"traced": traced_phase(dev, twins, blocks)}))
+    clock.lap("traced")
     log(json.dumps({"audits": audit_phase(
         dev, main_stats["fused_ms_per_round"])}))
     clock.lap("audits")

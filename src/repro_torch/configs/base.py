@@ -239,8 +239,7 @@ class RuntimeConfig:
     paper's tau (Assumption 4) on 'arrival': a round more than tau rounds
     ahead of the slowest party is parked until the laggard catches up
     (None = off). ``trace_dir`` and ``monitor`` are the reference's trace
-    capture and live health plane; the port's runtime refuses them until
-    its tracing is ported.
+    capture and live health plane (repro_torch/obs).
     """
     host: str = "127.0.0.1"       # internal-only: loopback federation;
     #                               launch/train.py spawns all processes
@@ -265,10 +264,13 @@ class RuntimeConfig:
     #                               per round
     deadline_s: float = 300.0     # internal-only: hard wall for the whole
     #                               federation, derived from --steps
-    trace_dir: Optional[str] = None   # flag: --trace — refused by the
-    #                               port's runtime (tracing not ported)
-    monitor: bool = False         # flag: --monitor — refused by the port's
-    #                               runtime (tracing not ported)
+    trace_dir: Optional[str] = None   # flag: --trace — per-process JSONL
+    #                               trace capture dir (repro_torch/obs);
+    #                               None = tracing off
+    monitor: bool = False         # flag: --monitor — live health plane:
+    #                               the parent runs an obs.monitor
+    #                               collector that the children stream to
+    #                               (requires trace_dir)
 
 
 @dataclass(frozen=True)

@@ -34,7 +34,16 @@ parallel part of the simulation is the sleep-modelled party compute, and
 the kernel wrappers' launch counters and lazy library loads are never
 raced. The party math is three module-level helpers (prepare ->
 messages -> apply), as in the reference, so a later transport can run
-them with a socket in between. Tracing spans are not ported yet.
+them with a socket in between.
+
+Trace spans (repro_torch/obs), the reference's: ``party_round`` around a
+party's whole round, ``party_prepare`` around its local compute and
+encode (its device time lands here, in the payloads' host copy), and
+``server_handle`` around the server's decode, step and reply (its device
+time lands in ``float(h)``); after each handle a defended round charges
+its 1 + K releases to the tracer's shadow accountant (the ``dp_epsilon``
+gauge) and the round's h is a ``loss`` gauge. Off, each is one cached
+None check.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.core.vfl import VFLModel
 from repro_torch.core.wire import (SERVER, Channel, InMemoryChannel, Message,
                                    party, party_index)
 from repro_torch.kernels import build
+from repro_torch.obs import maybe_tracer, trace
 from repro_torch.utils import prng, trees
 from repro_torch.utils.device import resolve_device
 
@@ -163,7 +173,12 @@ def party_round_prepare(model, vfl: VFLConfig, ex: ZOExchange, w_m, X,
     With K directions each c_hat is its own message with its own rounding
     key, ``fold_name(k_dir, "codec_hat")`` for k_dir in ``split(key, K)``;
     at K = 1 the direction key is ``key`` itself and c_hat's rounding key
-    ``fold_in(key, 2)``, as the reference's."""
+    ``fold_in(key, 2)``, as the reference's. Span: ``party_prepare``."""
+    with trace("party_prepare", party=int(m)):
+        return _party_round_prepare(model, vfl, ex, w_m, X, idx, key, m)
+
+
+def _party_round_prepare(model, vfl, ex, w_m, X, idx, key, m):
     if vfl.num_directions == 1:
         keys, hat_keys = [key], [prng.fold_in(key, 2)]
     else:
@@ -252,10 +267,26 @@ class _Server:
     def handle(self, msg_c: Message, msg_c_hats):
         """Algorithm 1 lines 8-11: the delivered c_up Message and the
         c_hat_up Messages (one per direction) in, the delivered loss_down
-        Message of (h, h_bar_1..K) out."""
+        Message of (h, h_bar_1..K) out.
+
+        Span: ``server_handle``, keyed on the party's round so the
+        collector joins it to the party's spans and the c_up crossing;
+        then a defended round charges its 1 + K releases to the tracer's
+        accountant, and h (already a Python float: no extra sync) is the
+        ``loss`` gauge."""
         if isinstance(msg_c_hats, Message):
             msg_c_hats = (msg_c_hats,)
         m = party_index(msg_c.sender)
+        with trace("server_handle", party=m, round=int(msg_c.round)):
+            down = self._handle(m, msg_c, msg_c_hats)
+        tr = maybe_tracer()
+        if tr is not None:
+            tr.dp_round(self.ex.dp, releases=1 + len(msg_c_hats), party=m)
+            tr.gauge("loss", float(down.scalars()[0]), party=m,
+                     round=int(msg_c.round))
+        return down
+
+    def _handle(self, m: int, msg_c: Message, msg_c_hats):
         idx = np.asarray(msg_c.meta["idx"])
         with self.lock:
             rnd = self.losses.updates
@@ -353,17 +384,18 @@ class HostAsyncTrainer:
         update. Only party m's thread touches its block and counter."""
         rnd = self._party_round[m]
         self._party_round[m] += 1
-        prep = party_round_prepare(self.model, self.vfl, self.exchange,
-                                   self.party_w[m], self.X, idx, key, m)
-        t = self.compute_cost_s * self.straggler.get(m, 1.0)
-        if t > 0:
-            time.sleep(t)
-        msg_c, msg_hats = party_round_messages(self.channel, m, rnd, idx,
-                                               prep)
-        down = self.server.handle(msg_c, msg_hats)
-        self.party_w[m] = party_round_apply(self.vfl, self.exchange,
-                                            self.party_w[m], prep,
-                                            down.scalars())
+        with trace("party_round", party=int(m), round=int(rnd)):
+            prep = party_round_prepare(self.model, self.vfl, self.exchange,
+                                       self.party_w[m], self.X, idx, key, m)
+            t = self.compute_cost_s * self.straggler.get(m, 1.0)
+            if t > 0:
+                time.sleep(t)
+            msg_c, msg_hats = party_round_messages(self.channel, m, rnd, idx,
+                                                   prep)
+            down = self.server.handle(msg_c, msg_hats)
+            self.party_w[m] = party_round_apply(self.vfl, self.exchange,
+                                                self.party_w[m], prep,
+                                                down.scalars())
 
     def _party_update(self, m: int, rng: np.random.Generator):
         idx, key = draw_round(rng, self.n, self.batch_size)

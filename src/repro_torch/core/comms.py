@@ -4,6 +4,15 @@ For one (party m, minibatch B) round:
   ZOO-VFL: up   = 2 * B * c_dim * v bytes  (c, c_hat; v = bytes per value
                   under the up-link codec, + per-message codec overhead)
            down = 2 * 4 bytes              (h, h_bar scalars)
+  TIG    : up   = B * c_dim * 4
+           down = B * c_dim * 4            (dL/dc_m per sample)
+  TG (parameter/gradient transmitting): up/down = d_m * 4 (the local
+           gradient or parameter block, d_l in the paper's Table 3)
+
+The paper's "ratios of time spending" compare sending a d_l-dimensional
+gradient with sending the function values: ``paper_ratio`` prices the
+formulas on a latency + bandwidth model, ``measured_paper_ratio`` prices
+each framework's Messages on a ``NetworkChannel``.
 
 These formulas are ANALYTIC; the executors measure the real encoded
 payload bytes through core/exchange.py, and ``validate_measured`` /
@@ -121,3 +130,54 @@ def validate_serving_channel(channel, expected: dict) -> dict:
             f"serving wire drift: measured {measured} != analytic "
             f"{expected}")
     return expected
+
+
+def tig_round(batch: int, c_dim: int = 1) -> RoundComms:
+    return RoundComms(batch * c_dim * FLOAT, batch * c_dim * FLOAT)
+
+
+def tg_round(d_m: int) -> RoundComms:
+    return RoundComms(d_m * FLOAT, d_m * FLOAT)
+
+
+def paper_ratio(d_l: int, batch: int = 1, c_dim: int = 1,
+                latency_s: float = 5e-5, bandwidth_Bps: float = 1e8) -> float:
+    """Time(TG gradient of dim d_l) / Time(function values) under a
+    latency + bandwidth channel model: the quantity of the paper's Table
+    3. ``measured_paper_ratio`` reproduces it from priced Messages."""
+    def t(n_bytes):
+        return latency_s + n_bytes / bandwidth_Bps
+    grad_t = t(tg_round(d_l).total)
+    fv_t = t(zoo_vfl_round(batch, c_dim).total)
+    return grad_t / fv_t
+
+
+def measured_paper_ratio(d_l: int, batch: int = 1, c_dim: int = 1,
+                         network=None) -> float:
+    """Table 3's time ratio, MEASURED: each framework's round as wire
+    Messages (host numpy payloads of the real shapes, so measured nbytes;
+    nothing touches a device), priced on a ``NetworkChannel`` under the
+    paper's charging model (one latency a pipelined round,
+    ``measure_round_s``). The default network is the 'lan' profile, whose
+    constants are ``paper_ratio``'s defaults."""
+    import numpy as np  # noqa: PLC0415
+
+    from repro_torch.configs.base import NetworkConfig
+    from repro_torch.core.wire import SERVER, Message, NetworkChannel, party
+
+    cfg = network if network is not None else NetworkConfig()
+    p, s = party(0), SERVER
+    blk = np.zeros((d_l,), np.float32)
+    c = np.zeros((batch, c_dim) if c_dim > 1 else (batch,), np.float32)
+    ch_tg, ch_zoo = NetworkChannel(cfg), NetworkChannel(cfg)
+    # TG's round: the party's d_l-dim block up, the updated parameter
+    # block down, d_l floats each way (= tg_round). The up-link is typed
+    # c_up: KINDS has no gradient-up kind, and Table 3 prices only its size
+    t_tg = ch_tg.measure_round_s([
+        Message.make("c_up", p, s, 0, blk),
+        Message.make("param_down", s, p, 0, blk)])
+    t_zoo = ch_zoo.measure_round_s([
+        Message.make("c_up", p, s, 0, c),
+        Message.make("c_hat_up", p, s, 0, c),
+        Message.make("loss_down", s, p, 0, (0.0, 0.0))])
+    return t_tg / t_zoo

@@ -29,6 +29,7 @@ import numpy as np
 
 from repro_torch.configs.base import NetworkConfig
 from repro_torch.core.exchange import SCALAR_BYTES, wire_nbytes
+from repro_torch.obs import maybe_tracer
 
 KINDS = ("c_up", "c_hat_up", "loss_down", "grad_down", "param_down",
          "serve_down")
@@ -36,6 +37,10 @@ UP_KINDS = ("c_up", "c_hat_up")
 DOWN_KINDS = ("loss_down", "grad_down", "param_down", "serve_down")
 
 SERVER = "server"
+
+# depth of ``Channel.observe`` calls on this thread: a wire record made
+# inside one is a receiver re-accounting a crossing (``observed``)
+_OBSERVING = threading.local()
 
 
 def party(m: int) -> str:
@@ -187,6 +192,16 @@ class Channel:
         self._lock = threading.Lock()
 
     def _account(self, msg: Message, transit_s: float) -> None:
+        # every send path funnels through here once per LOCAL crossing
+        # (RecordingChannel proxies to its inner channel), so this is THE
+        # wire trace point: it reads the built message and the priced
+        # transit and changes neither. Over TCP both endpoints account a
+        # crossing (the sender in send, the receiver in observe); the
+        # observed flag lets the merged view count each crossing once
+        tr = maybe_tracer()
+        if tr is not None:
+            tr.wire(self.name, msg, transit_s,
+                    observed=bool(getattr(_OBSERVING, "depth", 0)))
         with self._lock:
             self.sent += 1
             self.bytes_by_kind[msg.kind] = (
@@ -225,8 +240,14 @@ class Channel:
         both directions of every link; in the multi-process runtime
         (runtime/) each endpoint owns its own stack and routes what it
         reads off its sockets through here, so the endpoint's counters and
-        transcript match the single-channel view of its links exactly."""
-        return self.send(msg)
+        transcript match the single-channel view of its links exactly. The
+        thread-local observe depth marks the trace record, so the merged
+        view can tell a receipt from the original send."""
+        _OBSERVING.depth = getattr(_OBSERVING, "depth", 0) + 1
+        try:
+            return self.send(msg)
+        finally:
+            _OBSERVING.depth -= 1
 
 
 class InMemoryChannel(Channel):

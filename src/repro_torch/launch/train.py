@@ -45,15 +45,22 @@ processes over sockets with ``--transport tcp`` (``--ckpt-dir`` serves
 the checkpointed blocks). ``--serve-batch`` sets the slots, the largest
 wire batch, and ``--serve-cache`` the per-party answer cache.
 
+``--trace DIR`` writes per-process JSONL traces under DIR (repro_torch/
+obs; the launcher's own as role ``launch``, a tcp run's children theirs);
+merge them with ``python -m repro_torch.obs DIR``. ``--monitor`` adds the
+live health plane: a collector scores the records as they stream in and
+writes ``alerts.jsonl`` and ``health.json`` into DIR (``python -m
+repro_torch.obs.live DIR``). Both change no bit of a run, and every
+metric line is also a ``metric`` record.
+
 The parser takes the reference's whole flag set. What the port does not
-run yet is refused with an error: ``--mode lm``, ``--data-parallel``,
-``--trace`` and ``--monitor``.
+run yet is refused with an error: ``--mode lm`` and ``--data-parallel``.
 """
 from __future__ import annotations
 
 import argparse
 import math
-import sys
+import os
 import time
 
 import numpy as np
@@ -66,6 +73,7 @@ from repro_torch.data.synthetic import make_lm_dataset
 from repro_torch.dp.accountant import resolve_dp
 from repro_torch.launch import steps as step_lib
 from repro_torch.models.model import build_model
+from repro_torch.obs.metrics import ObsMetricLogger
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
@@ -163,9 +171,13 @@ def parse_args(argv=None):
         if args.parties < 2:
             p.error("--straggler-s stalls the LAST party so the others "
                     "define the pace; it requires --parties >= 2")
-    if args.monitor and not args.trace:
-        p.error("--monitor scores the live trace stream; it requires "
-                "--trace DIR")
+    if args.monitor:
+        if not args.trace:
+            p.error("--monitor scores the live trace stream; it requires "
+                    "--trace DIR (alerts.jsonl / health.json land there)")
+        if args.mode != "vfl-zoo":
+            p.error("--monitor watches the federated health plane; it "
+                    "requires --mode vfl-zoo")
     if args.serve is not None:
         if args.mode != "vfl-zoo":
             p.error("--serve drives the federated serving round; it "
@@ -206,7 +218,6 @@ def parse_args(argv=None):
         (args.mode != "vfl-zoo", f"--mode {args.mode} (first-order Adam "
          "needs a backward pass)"),
         (args.data_parallel != 1, "--data-parallel"),
-        (args.trace is not None or args.monitor, "--trace/--monitor"),
     ]
     for hit, what in refused:
         if hit:
@@ -231,28 +242,6 @@ def make_batch_arrays(cfg, n, seq_len, seed, device):
     toks, targets = make_lm_dataset(n, seq_len, cfg.vocab_size, seed)
     return {"tokens": torch.as_tensor(toks, device=device),
             "targets": torch.as_tensor(targets, device=device)}
-
-
-def _fmt(v):
-    try:
-        return f"{float(v):.6g}"
-    except (TypeError, ValueError):
-        return str(v)
-
-
-class MetricLogger:
-    """The reference's CSV-ish log line: ``[name] step=s t=..s k=v ...``."""
-
-    def __init__(self, name: str, stream=None):
-        self.name = name
-        self.stream = stream or sys.stdout
-        self.t0 = time.perf_counter()
-
-    def log(self, step: int, **metrics):
-        dt = time.perf_counter() - self.t0
-        kv = " ".join(f"{k}={_fmt(v)}" for k, v in metrics.items())
-        print(f"[{self.name}] step={step} t={dt:.2f}s {kv}",
-              file=self.stream, flush=True)
 
 
 def run_tcp(args, cfg, device, log) -> dict:
@@ -289,7 +278,8 @@ def run_tcp(args, cfg, device, log) -> dict:
     # socket round trips (plus the scripted stall on the straggler)
     per_round = 2.0 + (args.straggler_s or 0.0)
     cfg_rt = RuntimeConfig(
-        deadline_s=max(300.0, 120.0 + per_round * args.steps * args.parties))
+        deadline_s=max(300.0, 120.0 + per_round * args.steps * args.parties),
+        trace_dir=args.trace, monitor=args.monitor)
     res = run_federation(spec, rounds=args.steps, plan=FailurePlan(faults),
                          cfg=cfg_rt, ckpt_root=args.ckpt_dir,
                          resume=args.resume, device=device)
@@ -304,8 +294,16 @@ def run_tcp(args, cfg, device, log) -> dict:
            "wire_down_bytes": srv["bytes_by_kind"].get("loss_down", 0),
            "socket_bytes": srv["socket_bytes_in"] + srv["socket_bytes_out"],
            "device": srv["device"]}
-    log.log(args.steps, transport="tcp", h=final_h,
-            **{k: v for k, v in out.items() if k not in ("h", "device")})
+    # the reference's line, field for field
+    extra = ({"dp_epsilon": args.dp_epsilon}
+             if args.dp_epsilon is not None else {})
+    if "monitor" in res:
+        out["alerts"] = res["monitor"]["alerts"]
+        extra["alerts"] = len(out["alerts"])
+    log.log(args.steps, transport="tcp", updates=out["updates"], h=final_h,
+            rejoins=out["rejoins"], **extra,
+            **{k: out[k] for k in ("disconnects", "wire_up_bytes",
+                                   "wire_down_bytes", "socket_bytes")})
     return out
 
 
@@ -338,19 +336,25 @@ def run_serve(args, cfg, device, log) -> dict:
     if args.transport == "tcp":
         from repro_torch.configs import RuntimeConfig
         from repro_torch.runtime.serving import run_tcp_serving
-        cfg_rt = RuntimeConfig(deadline_s=max(300.0,
-                                              120.0 + 0.1 * sc.requests))
+        cfg_rt = RuntimeConfig(
+            deadline_s=max(300.0, 120.0 + 0.1 * sc.requests),
+            trace_dir=args.trace, monitor=args.monitor)
         res = run_tcp_serving(spec, sample_ids, cfg=cfg_rt, slots=sc.slots,
                               cache_entries=sc.cache_entries,
                               ckpt_root=args.ckpt_dir, device=device)
         met = res["metrics"]
+        out = {**met, "served": float(met["served"]), "transport": "tcp",
+               "versions": [res["parties"][m]["version"]
+                            for m in range(args.parties)],
+               "device": str(device)}
+        extra = {}
+        if "monitor" in res:
+            out["alerts"] = res["monitor"]["alerts"]
+            extra["alerts"] = len(out["alerts"])
         log.log(sc.requests, transport="tcp", served=met["served"],
                 steps=met["steps"], cache_hits=met["cache_hits"],
-                bytes_per_prediction=met["bytes_per_prediction"])
-        return {**met, "served": float(met["served"]), "transport": "tcp",
-                "versions": [res["parties"][m]["version"]
-                             for m in range(args.parties)],
-                "device": str(device)}
+                bytes_per_prediction=met["bytes_per_prediction"], **extra)
+        return out
 
     from repro_torch.core.wire import NetworkChannel
     from repro_torch.runtime.problem import build_problem
@@ -415,22 +419,55 @@ def main(argv=None) -> dict:
     resumed from (0 without --resume), "device": the torch device}, plus
     the priced wire (``price_network``) with --network; tcp returns the
     federation's losses and counters (``run_tcp``); --serve the serving
-    engine's metrics (``run_serve``)."""
+    engine's metrics (``run_serve``). With ``--monitor`` each also
+    carries the collector's ``alerts``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    monitor = None
+    if args.trace:
+        from repro_torch import obs
+        if args.monitor and args.transport != "tcp":
+            # in memory the launcher is the collector and the only
+            # producer: the monitor must exist, and its address be
+            # exported, BEFORE obs.configure dials the stream. Over tcp
+            # the harness or the serving parent owns it
+            from repro_torch.obs.health import HealthEngine
+            from repro_torch.obs.monitor import MonitorServer
+            monitor = MonitorServer(args.trace, engine=HealthEngine())
+            os.environ[obs.MONITOR_ENV] = monitor.addr
+        # the launcher's own tracer (metric records and any in-process
+        # executor spans); tcp children configure theirs from the
+        # harness's environment
+        obs.configure(args.trace, role="launch")
+    try:
+        out = _dispatch(args, cfg, device)
+    finally:
+        if args.trace:
+            from repro_torch import obs
+            if monitor is not None:
+                os.environ.pop(obs.MONITOR_ENV, None)
+            obs.configure(None)     # the goodbye frame, then the collector
+            if monitor is not None:
+                summary = monitor.stop()
+    if monitor is not None:
+        out["alerts"] = summary["alerts"]
+    return out
+
+
+def _dispatch(args, cfg, device) -> dict:
     if args.serve is not None:
         return run_serve(args, cfg, device,
-                         MetricLogger(f"serve:{args.arch}:vfl-zoo"))
+                         ObsMetricLogger(f"serve:{args.arch}:vfl-zoo"))
     if args.transport == "tcp":
         # the LR problem pads its d_model features to q equal blocks
         return run_tcp(args, cfg, device,
-                       MetricLogger(f"train:{args.arch}:vfl-zoo-tcp"))
+                       ObsMetricLogger(f"train:{args.arch}:vfl-zoo-tcp"))
     if cfg.d_model % args.parties:
         raise ValueError(f"--parties must divide d_model={cfg.d_model}")
     t_setup = time.perf_counter()
     model = build_model(cfg)
-    log = MetricLogger(f"train:{args.arch}:{args.mode}")
+    log = ObsMetricLogger(f"train:{args.arch}:{args.mode}")
     n = max(64, args.batch_size * 8)
     data = make_batch_arrays(cfg, n, args.seq_len, args.seed, device)
     dp = make_dp(args)

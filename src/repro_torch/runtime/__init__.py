@@ -2,8 +2,8 @@
 separate OS processes over TCP, behind the same typed Message/Channel
 seam as the in-process executors, speaking the reference's ``ZV`` v1
 wire byte for byte, and federated serving over the same transport
-(``run_tcp_serving``). The runtime's trace spans are not ported yet
-(ROADMAP.md, Queue 1 item 13)."""
+(``run_tcp_serving``), traced and monitored through repro_torch/obs as
+the reference's runtime is."""
 from repro_torch.runtime.failures import (CRASH_EXIT_CODE,  # noqa: F401
                                           NO_FAILURES, FailurePlan,
                                           PartyFault)

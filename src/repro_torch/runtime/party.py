@@ -21,6 +21,13 @@ reply cache, so the party reconstructs the pre-crash trajectory exactly.
 The result crosses the process boundary as numpy and plain Python only,
 never as a device tensor, and carries the process's device and the
 launch counts of the port's kernels in that process.
+
+Trace spans, the reference's: ``party_round`` around a round,
+``party_stall`` around an injected send stall, ``party_wait_reply``
+around the wait for loss_down (the server's processing, seen from here)
+and ``party_apply`` around the update (queued launches only: its device
+time lands in the next round's ``party_prepare``); each ping/pong pair
+is a ``heartbeat_rtt_s`` histogram.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.core import async_host
 from repro_torch.core.exchange import CommsMeter, ZOExchange
 from repro_torch.core.wire import InMemoryChannel
 from repro_torch.kernels.ops import launch_counts
+from repro_torch.obs import maybe_tracer, trace
 from repro_torch.runtime.failures import CRASH_EXIT_CODE, PartyFault
 from repro_torch.runtime.problem import build_problem
 from repro_torch.runtime.transport import (ConnectionClosed, FramedSocket,
@@ -47,7 +55,12 @@ from repro_torch.utils.device import child_device
 def _recv_reply(fsock: FramedSocket, cfg: RuntimeConfig):
     """Wait for the round's loss_down, pinging every ``heartbeat_s`` while
     it is late; answered pongs confirm liveness and do not consume the
-    wait budget. The hard bound is ``request_timeout_s * max_retries``."""
+    wait budget. The hard bound is ``request_timeout_s * max_retries``.
+    Each ping/pong pair is timed through the tracer's local FIFO (pings
+    and pongs are 1:1 and in order on this socket); the frames themselves
+    are untouched, so traced and untraced runs put the same bytes on the
+    wire."""
+    tr = maybe_tracer()
     deadline = time.monotonic() + cfg.request_timeout_s * cfg.max_retries
     while True:
         remaining = deadline - time.monotonic()
@@ -58,10 +71,14 @@ def _recv_reply(fsock: FramedSocket, cfg: RuntimeConfig):
             frame_type, obj = fsock.recv(
                 timeout=min(cfg.heartbeat_s, remaining))
         except TransportTimeout:
+            if tr is not None:
+                tr.ping_sent("server")
             fsock.send_control({"type": "ping"})   # probe; keep waiting
             continue
         if frame_type == "ctl":
             if obj.get("type") == "pong":
+                if tr is not None:
+                    tr.pong_received("server")
                 continue
             raise TransportError(f"unexpected control frame {obj!r}")
         if obj.kind != "loss_down":
@@ -123,25 +140,32 @@ def party_main(spec: dict, m: int, port: int, rounds: int,
                     and not resume):
                 # scripted abrupt death: no goodbye, no checkpoint flush
                 os._exit(CRASH_EXIT_CODE)
-            t0 = time.perf_counter()
-            idx, key = async_host.draw_round(rng, n, prob.batch_size)
-            prep = async_host.party_round_prepare(model, vfl, ex, w_m,
-                                                  prob.X, idx, key, m)
-            t1 = time.perf_counter()
-            if cfg.compute_cost_s > 0:
-                time.sleep(cfg.compute_cost_s)
-            if fault is not None and fault.slow_send_s > 0:
-                time.sleep(fault.slow_send_s)      # straggler link
-            msg_c, msg_hats = async_host.party_round_messages(
-                channel, m, rnd, idx, prep)
-            fsock.send_message(msg_c)
-            for msg in msg_hats:
-                fsock.send_message(msg)
-            reply = channel.observe(_recv_reply(fsock, cfg))
-            t2 = time.perf_counter()
-            w_m = async_host.party_round_apply(vfl, ex, w_m, prep,
-                                               reply.scalars())
-            round_s.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+            with trace("party_round", party=int(m), round=int(rnd)):
+                t0 = time.perf_counter()
+                idx, key = async_host.draw_round(rng, n, prob.batch_size)
+                prep = async_host.party_round_prepare(model, vfl, ex, w_m,
+                                                      prob.X, idx, key, m)
+                t1 = time.perf_counter()
+                if cfg.compute_cost_s > 0:
+                    time.sleep(cfg.compute_cost_s)
+                if fault is not None and fault.slow_send_s > 0:
+                    with trace("party_stall", party=int(m),
+                               round=int(rnd)):
+                        time.sleep(fault.slow_send_s)   # straggler link
+                msg_c, msg_hats = async_host.party_round_messages(
+                    channel, m, rnd, idx, prep)
+                fsock.send_message(msg_c)
+                for msg in msg_hats:
+                    fsock.send_message(msg)
+                with trace("party_wait_reply", party=int(m),
+                           round=int(rnd)):
+                    raw = _recv_reply(fsock, cfg)
+                reply = channel.observe(raw)
+                t2 = time.perf_counter()
+                with trace("party_apply", party=int(m), round=int(rnd)):
+                    w_m = async_host.party_round_apply(vfl, ex, w_m, prep,
+                                                       reply.scalars())
+                round_s.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
             if ckpt_dir is not None and (rnd + 1) % cfg.ckpt_every == 0:
                 save_checkpoint(ckpt_dir, rnd + 1, w_m,
                                 {"party": m, "round": rnd + 1})
@@ -173,6 +197,11 @@ def party_main(spec: dict, m: int, port: int, rounds: int,
         "socket_bytes_in": fsock.bytes_in,
         "final_w": {k: v.detach().cpu().numpy() for k, v in w_m.items()},
     }
+    tr = maybe_tracer()
+    if tr is not None:
+        # the harness may end this process right after reading the result
+        # (skipping atexit): get the trace tail to disk first
+        tr.flush()
     if result_q is not None:
         result_q.put(("party", result))
     return result

@@ -35,6 +35,12 @@ their processes started.
 Heartbeats ride the receiver threads (ping -> pong at once, even while
 the dispatcher is busy), and every blocking wait is bounded by the run
 deadline: a hung party fails the federation loudly.
+
+Trace points, the reference's: a ``server_process`` span from admission
+to reply (observe, the ``server_handle`` span inside it, the reply's
+send and the cache), the ``party_disconnect`` and ``reply_cache_hit``
+counters, and on the arrival schedule a ``staleness`` histogram at every
+admission and a ``parked_s`` one for every round the tau bound held back.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from repro_torch.core.exchange import CommsMeter, ZOExchange
 from repro_torch.core.wire import (SERVER, InMemoryChannel, Message,
                                    RecordingChannel, party)
 from repro_torch.kernels.ops import launch_counts
+from repro_torch.obs import maybe_tracer, trace
 from repro_torch.runtime.problem import build_problem
 from repro_torch.runtime.transport import (ConnectionClosed, FramedSocket,
                                            TransportError, TransportTimeout)
@@ -192,6 +199,10 @@ class RuntimeServer:
 
     def _on_disconnect(self, m: int) -> None:
         self._disconnects += 1
+        tr = maybe_tracer()
+        if tr is not None:
+            # a live monitor (and the merged trace) sees WHO dropped
+            tr.counter("party_disconnect", party=int(m))
         self._snapshot(f"party {m} disconnected")
 
     # -- connection handling -----------------------------------------------
@@ -302,6 +313,9 @@ class RuntimeServer:
                     "server state has advanced past it and cannot answer "
                     "losslessly")
             reply, sent_seq, sent_ok = self._replies[m][rnd]
+        tr = maybe_tracer()
+        if tr is not None:
+            tr.counter("reply_cache_hit", party=int(m), round=int(rnd))
         link = self._current_link(m)
         if link is None or (sent_ok and sent_seq == link.seq):
             return
@@ -314,7 +328,8 @@ class RuntimeServer:
 
     def _process_round(self, m: int, msg_c, msg_hats) -> None:
         t0 = time.perf_counter()
-        self._process_one(m, msg_c, msg_hats)
+        with trace("server_process", party=int(m), round=int(msg_c.round)):
+            self._process_one(m, msg_c, msg_hats)
         self._dispatch_s.append((self._waited_s, time.perf_counter() - t0))
         self._waited_s = 0.0
 
@@ -411,6 +426,8 @@ class RuntimeServer:
         total = self.rounds * self.q
         tau = self.cfg.max_staleness
         parked: dict[int, tuple] = {}          # party -> (seq, rnd, c, hats)
+        park_t0: dict[int, float] = {}         # party -> parking start
+        tr = maybe_tracer()
 
         def staleness(rnd: int) -> int:
             return rnd - min(self._processed)
@@ -421,6 +438,10 @@ class RuntimeServer:
             for pm in sorted(parked, key=lambda p: parked[p][1]):
                 if staleness(parked[pm][1]) <= tau:
                     item = (pm,) + parked.pop(pm)
+                    t_park = park_t0.pop(pm)
+                    if tr is not None:
+                        tr.histo("parked_s", time.monotonic() - t_park,
+                                 party=int(pm), round=int(item[2]))
                     break
             if item is None:
                 item = self._pop(self._global_inbox)
@@ -437,9 +458,13 @@ class RuntimeServer:
                     f"expected {self._processed[m]}")
             if tau is not None and staleness(rnd) > tau:
                 parked[m] = (seq, rnd, msg_c, hats)
+                park_t0[m] = time.monotonic()
                 self._parked_events += 1
                 continue
             self._staleness_max = max(self._staleness_max, staleness(rnd))
+            if tr is not None:
+                tr.histo("staleness", staleness(rnd),
+                         party=int(m), round=int(rnd))
             self._process_round(m, msg_c, hats)
 
     # -- run ---------------------------------------------------------------
@@ -525,7 +550,13 @@ def server_main(spec: dict, rounds: int, cfg: RuntimeConfig,
         server = RuntimeServer(spec, rounds, cfg, channel_kind=channel_kind,
                                ckpt_dir=ckpt_dir, resume=resume,
                                device=device)
-        result_q.put(("server", server.serve(port_cb=port_q.put)))
+        result = server.serve(port_cb=port_q.put)
+        tr = maybe_tracer()
+        if tr is not None:
+            # the harness may end this process right after reading the
+            # result (skipping atexit): get the trace tail to disk first
+            tr.flush()
+        result_q.put(("server", result))
     except BaseException as e:  # noqa: BLE001 — report, then die loudly
         import traceback
         result_q.put(("server_error",

@@ -24,6 +24,14 @@ Every process runs on ``device`` (None = the card, which must be there;
 parent builds the kernels before it spawns, so the q children load them
 instead of each compiling them. A party's result carries numpy and plain
 Python only, with its device and its launch counts.
+
+Trace points, the reference's: a ``serve_answer`` span around a party's
+answer (its device time lands there, in the answer's host copy), a
+``heartbeat_rtt_s`` histogram for each ping/pong pair of the front end,
+and the engine's own ``serve_step`` span and ``serve_*`` gauges.
+``RuntimeConfig.trace_dir`` and ``monitor`` work as in the training
+harness; the collector runs here, with the byte-drift detector off
+(a serving c_up's size follows its batch).
 """
 from __future__ import annotations
 
@@ -42,8 +50,14 @@ from repro_torch.core.exchange import ZOExchange
 from repro_torch.core.wire import InMemoryChannel, Message
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import launch_counts
-from repro_torch.runtime.harness import (NOT_PORTED, _ensure_child_pythonpath,
-                                         _terminate)
+# the serving parent owns its collector, as the training harness does:
+# the other module of runtime/ that imports the monitor and the health
+# engine (tests/test_torch_port_rules.py)
+from repro_torch.obs import MONITOR_ENV, maybe_tracer, trace
+from repro_torch.obs.health import HealthEngine
+from repro_torch.obs.monitor import MonitorServer
+from repro_torch.runtime.harness import (TRACE_ENV, _ensure_child_pythonpath,
+                                         _set_env, _terminate)
 from repro_torch.runtime.problem import build_problem
 from repro_torch.runtime.server import FederationError, make_channel
 from repro_torch.runtime.transport import (ConnectionClosed, FramedSocket,
@@ -106,8 +120,10 @@ def serving_party_main(spec: dict, m: int, port: int, cfg: RuntimeConfig,
                 reply = replies[msg.round]    # answer from the cache
             else:
                 t0 = time.perf_counter()
-                reply = channel.send(answer_serve_query(
-                    model, m, w_m, prob.X, ex, msg, version=version))
+                with trace("serve_answer", party=int(m),
+                           round=int(msg.round)):
+                    reply = channel.send(answer_serve_query(
+                        model, m, w_m, prob.X, ex, msg, version=version))
                 answer_s += time.perf_counter() - t0
                 replies[msg.round] = reply
                 served += len(np.asarray(msg.payload).reshape(-1))
@@ -132,6 +148,9 @@ def serving_party_main(spec: dict, m: int, port: int, cfg: RuntimeConfig,
         "socket_bytes_out": fsock.bytes_out,
         "socket_bytes_in": fsock.bytes_in,
     }
+    tr = maybe_tracer()
+    if tr is not None:
+        tr.flush()     # before the result lets the parent end this process
     if result_q is not None:
         result_q.put(("party", result))
     return result
@@ -175,10 +194,16 @@ class RemotePartyBackend:
                 frame_type, obj = self.fsock.recv(
                     timeout=min(cfg.heartbeat_s, remaining))
             except TransportTimeout:
+                tr = maybe_tracer()
+                if tr is not None:
+                    tr.ping_sent(self.m)
                 self.fsock.send_control({"type": "ping"})
                 continue
             if frame_type == "ctl":
                 if obj.get("type") == "pong":
+                    tr = maybe_tracer()
+                    if tr is not None:
+                        tr.pong_received(self.m)
                     continue
                 raise TransportError(f"unexpected control frame {obj!r}")
             if obj.kind != "c_up":
@@ -236,15 +261,17 @@ def run_tcp_serving(spec: dict, sample_ids, *,
     'metrics': the engine's metrics, 'analytic': the validated per-kind
     wire bytes, 'parties': {m: party report}, 'step_s': the engine's
     host-time split, 'channel': the front end's channel, 'pids' and
-    'exitcodes' [(name, exit code)] of the party processes}. When
+    'exitcodes' [(name, exit code)] of the party processes}, plus the
+    collector's summary under 'monitor' with ``cfg.monitor``. When
     ``ckpt_root`` is given, party m restores its newest block from
     ``<ckpt_root>/party<m>`` (the training harness's layout) and its
     checkpoint step becomes the serving params version. On success every
     party process has exited by itself; on an error path every live one is
     terminated."""
     cfg = cfg or RuntimeConfig()
-    if cfg.trace_dir or cfg.monitor:
-        raise NotImplementedError(f"RuntimeConfig.trace_dir/monitor {NOT_PORTED}")
+    if cfg.monitor and not cfg.trace_dir:
+        raise ValueError("RuntimeConfig.monitor requires trace_dir "
+                         "(the collector writes alerts/health there)")
     device = resolve_device(device)
     if device.type == "cuda":
         build.build_all()
@@ -256,72 +283,94 @@ def run_tcp_serving(spec: dict, sample_ids, *,
     w0 = model.init_server(server_key, device)
 
     _ensure_child_pythonpath()
-    ctx = mp.get_context("spawn")
-    result_q = ctx.Queue()
-    server_sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    server_sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    server_sock.bind((cfg.host, cfg.port))
-    server_sock.listen(q + 4)
-    port = server_sock.getsockname()[1]
-
-    def party_ckpt(m: int) -> str | None:
-        return (os.path.join(ckpt_root, f"party{m}")
-                if ckpt_root is not None else None)
-
-    procs = [ctx.Process(target=serving_party_main,
-                         args=(spec, m, port, cfg, party_ckpt(m), result_q,
-                               str(device)),
-                         name=f"serve-party{m}", daemon=True)
-             for m in range(q)]
-    engine = None
+    # the training harness's hand-off: the parties open their own trace
+    # files, and the collector runs before they spawn
+    prev_trace, prev_monitor = (os.environ.get(TRACE_ENV),
+                                os.environ.get(MONITOR_ENV))
+    monitor = None
+    if cfg.trace_dir:
+        os.environ[TRACE_ENV] = cfg.trace_dir
     try:
-        for p in procs:
-            p.start()
-        links = _accept_parties(server_sock, q, cfg, procs)
-        backends = [RemotePartyBackend(m, links[m][0], cfg,
-                                       version=links[m][1])
-                    for m in range(q)]
-        engine = FederatedServingEngine(
-            model, w0, backends, ex, channel=make_channel(channel_kind),
-            slots=slots, cache_entries=cache_entries)
-        for i, sid in enumerate(np.asarray(sample_ids).reshape(-1)):
-            engine.submit(ServeRequest(rid=i, sample_id=int(sid)))
-        completed = engine.run()
-        analytic = engine.validate_wire()
-        engine.close()                      # sends 'done' to every party
+        if cfg.monitor:
+            monitor = MonitorServer(cfg.trace_dir,
+                                    engine=HealthEngine(byte_drift=False))
+            os.environ[MONITOR_ENV] = monitor.addr
+        ctx = mp.get_context("spawn")
+        result_q = ctx.Queue()
+        server_sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        server_sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        server_sock.bind((cfg.host, cfg.port))
+        server_sock.listen(q + 4)
+        port = server_sock.getsockname()[1]
 
-        parties: dict = {}
-        deadline = time.monotonic() + cfg.deadline_s
-        while len(parties) < q:
-            if time.monotonic() > deadline:
-                raise FederationError(
-                    f"got {len(parties)}/{q} serving party reports")
-            try:
-                tag, payload = result_q.get(timeout=0.5)
-            except queue_mod.Empty:
-                dead = [p.name for p in procs
-                        if p.exitcode not in (None, 0)]
-                if dead:
-                    raise FederationError(f"{dead} exited without a report")
-                continue
-            if tag == "party":
-                parties[payload["party"]] = payload
-        for p in procs:
-            p.join(timeout=10.0)
-        hung = [p.name for p in procs if p.exitcode is None]
-        if hung:
-            raise FederationError(f"{hung} reported but did not exit")
-    except BaseException:
-        if engine is not None:
-            engine.close()
-        _terminate(procs)
-        raise
+        def party_ckpt(m: int) -> str | None:
+            return (os.path.join(ckpt_root, f"party{m}")
+                    if ckpt_root is not None else None)
+
+        procs = [ctx.Process(target=serving_party_main,
+                             args=(spec, m, port, cfg, party_ckpt(m),
+                                   result_q, str(device)),
+                             name=f"serve-party{m}", daemon=True)
+                 for m in range(q)]
+        engine = None
+        try:
+            for p in procs:
+                p.start()
+            links = _accept_parties(server_sock, q, cfg, procs)
+            backends = [RemotePartyBackend(m, links[m][0], cfg,
+                                           version=links[m][1])
+                        for m in range(q)]
+            engine = FederatedServingEngine(
+                model, w0, backends, ex, channel=make_channel(channel_kind),
+                slots=slots, cache_entries=cache_entries)
+            for i, sid in enumerate(np.asarray(sample_ids).reshape(-1)):
+                engine.submit(ServeRequest(rid=i, sample_id=int(sid)))
+            completed = engine.run()
+            analytic = engine.validate_wire()
+            engine.close()                      # sends 'done' to every party
+
+            parties: dict = {}
+            deadline = time.monotonic() + cfg.deadline_s
+            while len(parties) < q:
+                if time.monotonic() > deadline:
+                    raise FederationError(
+                        f"got {len(parties)}/{q} serving party reports")
+                try:
+                    tag, payload = result_q.get(timeout=0.5)
+                except queue_mod.Empty:
+                    dead = [p.name for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise FederationError(
+                            f"{dead} exited without a report")
+                    continue
+                if tag == "party":
+                    parties[payload["party"]] = payload
+            for p in procs:
+                p.join(timeout=10.0)
+            hung = [p.name for p in procs if p.exitcode is None]
+            if hung:
+                raise FederationError(f"{hung} reported but did not exit")
+        except BaseException:
+            if engine is not None:
+                engine.close()
+            _terminate(procs)
+            raise
+        finally:
+            server_sock.close()
+        by_rid = sorted(completed, key=lambda r: r.rid)
+        out = {"predictions": [(r.sample_id, r.prediction) for r in by_rid],
+               "metrics": engine.metrics(), "analytic": analytic,
+               "parties": parties, "step_s": dict(engine.step_s),
+               "channel": engine.channel,
+               "pids": [p.pid for p in procs],
+               "exitcodes": [(p.name, p.exitcode) for p in procs]}
+        if monitor is not None:
+            out["monitor"] = monitor.stop()
+        return out
     finally:
-        server_sock.close()
-    by_rid = sorted(completed, key=lambda r: r.rid)
-    return {"predictions": [(r.sample_id, r.prediction) for r in by_rid],
-            "metrics": engine.metrics(), "analytic": analytic,
-            "parties": parties, "step_s": dict(engine.step_s),
-            "channel": engine.channel,
-            "pids": [p.pid for p in procs],
-            "exitcodes": [(p.name, p.exitcode) for p in procs]}
+        if cfg.trace_dir:
+            _set_env(TRACE_ENV, prev_trace)
+        if monitor is not None:
+            _set_env(MONITOR_ENV, prev_monitor)
+            monitor.stop()                 # idempotent: error paths too

@@ -33,6 +33,12 @@ the encode (one ``defended_encode`` launch when ``fused``, keyless: int8
 rounds half to even), and crosses to the host once as the Message payload;
 a step's reduce makes one host-to-device copy of the slots' c rows and one
 transfer of their predictions back.
+
+Trace points, the reference's: a ``serve_step`` span around each step
+(its device time lands in the predictions' host copy at the step's end)
+and, after it, the ``serve_slots_occupied``, ``serve_crossings``,
+``serve_users_per_crossing``, ``serve_cache_hits_total`` and
+``serve_queue_depth`` gauges, all host integers.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from repro_torch.core.comms import (CODEC_MSG_OVERHEAD, CODEC_VALUE_BYTES,
 from repro_torch.core.exchange import ZOExchange, to_host
 from repro_torch.core.wire import (SERVER, Channel, InMemoryChannel, Message,
                                    party)
+from repro_torch.obs import maybe_tracer, trace
 
 # the host-time split of an engine step that ``FederatedServingEngine``
 # accumulates: cache resolve and issue, the parties' answers (a local
@@ -284,7 +291,23 @@ class FederatedServingEngine:
                     if r is not None]
         if not occupied:
             return
-        self._step_round(occupied)
+        with trace("serve_step", round=int(self.steps),
+                   occupied=len(occupied)):
+            crossings = self._step_round(occupied)
+        tr = maybe_tracer()
+        if tr is not None:
+            # slot occupancy and per-crossing amortization: users served
+            # this step over the crossings that paid for them (a
+            # serve_down and a batched c_up per issued party), and the
+            # backlog still waiting for a slot (the saturation signal)
+            rnd = self.steps - 1
+            tr.gauge("serve_slots_occupied", len(occupied), step=rnd)
+            tr.gauge("serve_crossings", crossings, step=rnd)
+            tr.gauge("serve_users_per_crossing",
+                     len(occupied) / max(crossings, 1), step=rnd)
+            tr.gauge("serve_cache_hits_total",
+                     sum(c.hits for c in self.caches), step=rnd)
+            tr.gauge("serve_queue_depth", len(self.queue), step=rnd)
 
     def _step_round(self, occupied) -> int:
         rnd = self.steps

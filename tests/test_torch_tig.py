@@ -24,6 +24,8 @@ from repro.data.synthetic import make_classification, make_paper_dataset
 from repro_torch.configs import (DPConfig, PaperFCNConfig, PaperLRConfig,
                                  VFLConfig)
 from repro_torch.core import tig
+from repro_torch.core.comms import tig_round
+from repro_torch.core.exchange import SCALAR_BYTES
 from repro_torch.core.vfl import PaperFCNModel, PaperLRModel
 from repro_torch.core.wire import RecordingChannel
 from repro_torch.interop import params_from_numpy
@@ -88,9 +90,12 @@ def test_host_tig_trainer_is_the_references(sampler):
     assert len(h) == ROUNDS * Q
     np.testing.assert_allclose(h, h_ref, rtol=TOL, atol=TOL)
     _same_traffic(ref_ch, ch)
-    assert ch.bytes_by_kind == {"c_up": ROUNDS * Q * BATCH * 4,
-                                "grad_down": ROUNDS * Q * BATCH * 4,
-                                "loss_down": ROUNDS * Q * 4}
+    # Table 3's TIG round (comms.tig_round) a party update, plus its scalar
+    # loss_down
+    per = tig_round(BATCH)
+    assert ch.bytes_by_kind == {"c_up": ROUNDS * Q * per.up_bytes,
+                                "grad_down": ROUNDS * Q * per.down_bytes,
+                                "loss_down": ROUNDS * Q * SCALAR_BYTES}
     for m in range(Q):
         np.testing.assert_allclose(port.party_w[m]["w"].numpy(),
                                    np.asarray(ref.party_w[m]["w"]),
