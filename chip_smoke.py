@@ -114,7 +114,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parent launches nothing during a federation, and no process is left
    alive after one. Host-clock ms per party update of (a) and (c) beside
    the in-process ``run_serial``'s.
-8. At the end, after 9 to 11: the ``{"kernels": [...]}`` line, the card
+8. At the end, after 9 to 12: the ``{"kernels": [...]}`` line, the card
    line, and last ``{"ok": true, "device": {...}}``.
 9. Serving: federated inference (``serving.federated``, and over TCP
    ``runtime.run_tcp_serving``) on the runtime phase's D7 FCN without DP
@@ -161,13 +161,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``server_process`` split into observe, handle and send (by the
    timestamps of the ``server_handle`` span inside it), and ms per party
    update traced against untraced, in memory and over TCP.
+12. LM serving (``serving/engine.py``, ``launch/serve.py``) through the
+   Model decode API, no kernel but the draws: (a) ``ServingEngine`` on
+   qwen1.5-0.5b at full width (24 layers, d 1024, vocab 151 936, bf16,
+   random weights from seed 0) at slots 8, max_len 512, over 16 requests
+   from ``default_rng(0)`` (prompts of 16–256 tokens, 16–64 new), greedy,
+   then sampled (seed 11) at slots 8 and at slots 3, every rid's tokens
+   equal between the two; launches exact: the initial weights' draws
+   (``lm_init_draws``), then in each sampled run one draw a step for each
+   occupied slot (``lm_sampled_draws``), nothing else. Generated tokens a
+   second (host clock around ``run``, ending with the ids on the host),
+   engine steps, ms a step, peak memory. (b) The same with the int8 KV
+   cache: under 0.6 of the bf16 cache's bytes, finite logits, tokens a
+   second. (c) ``launch/serve.py``'s ``main`` at full width with its
+   defaults (batch 4, prompt 32, gen 16) for qwen1.5-0.5b, rwkv6-1.6b and
+   hymba-1.5b: its ``prefill_s``, ``decode_s`` and ``tok_per_s``, every
+   step's logits finite, launches the initial weights' draws. (d) Each
+   family reduced (f32) on the card against the CPU port: decode logits
+   within 1e-4, continuous batching (6 requests at 2 slots) with greedy
+   tokens equal by the margin rule (``tokens_agree``), the dense forward
+   (the f32 flash_attention kernel, one launch a layer) within 2e-4 of
+   token-by-token decode, and hymba decoding 80 steps past its window of
+   64 through a rolling buffer of 64, finite and within 1e-4 of the CPU.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
 round and the async experiment's configuration, 4 steps of the scan
 trainer's defended D7 cell (asyrevel, K = 1), one step of the
-vfl-zoo cell, and 128 predictions of the serving cell in memory at slots
-8 (after 64 of warm-up), with ``torch.profiler``,
+vfl-zoo cell, 128 predictions of the serving cell in memory at slots
+8 (after 64 of warm-up), and 32 engine steps of the LM-serving cell
+(phase 12 (a)'s greedy engine, after 8 of warm-up), with
+``torch.profiler``,
 printing the device-busy share, the kernels by device time, the
 flash_attention kernels' device time and launches, and what the draws
 cost in that trace: each ``prng.bits`` and ``prng.sample_direction``
@@ -2342,6 +2366,333 @@ def audit_phase(dev, serial_ms):
             "zoo_ms_per_round": serial_ms, "tig_loss_first": first,
             "tig_loss_last": last, "tig_launches": launches}
 
+# ------------------------------------------------------- LM serving phase --
+
+LM_ARCH = "qwen1.5-0.5b"
+LM_SLOTS = 8
+LM_MAX_LEN = 512
+LM_REQUESTS = 16
+LM_SEED = 11
+LM_SAMPLED_SLOTS = (8, 3)
+LM_LAUNCHERS = ("qwen1.5-0.5b", "rwkv6-1.6b", "hymba-1.5b")
+# logits of the reduced f32 models, card against CPU (TF32 off); tokens by
+# the margin rule on them
+LM_TOL = 1e-4
+# the reduced dense forward (the f32 flash_attention kernel) against
+# token-by-token decode: the reference's tests/test_archs.py tolerance
+LM_CONSISTENCY_TOL = 2e-4
+
+
+def lm_requests(vocab, n=LM_REQUESTS, seed=0, prompt=(16, 257),
+                new=(16, 65)):
+    """(rid, prompt ids, max_new_tokens) from ``default_rng(seed)``:
+    prompt lengths and new-token budgets uniform in [lo, hi)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for rid in range(n):
+        p, m = int(rng.integers(*prompt)), int(rng.integers(*new))
+        out.append((rid, rng.integers(0, vocab, p).astype(np.int32), m))
+    return out
+
+
+def lm_init_draws(cfg):
+    """Draws of a Model's initial weights (one a matrix drawn from normal):
+    the embedding, the head unless tied, and per layer 7 (dense: wq, wk,
+    wv, wo, w_gate, w_up, w_down), 11 (ssm: the time mix's 2 LoRA
+    matrices, 5 projections and u; the channel mix's 3) or 12 (hybrid: 4
+    attention, 5 mamba (in_proj, conv_w, bc_proj, dt_proj, out_proj), 3
+    mlp)."""
+    per_layer = {"dense": 7, "ssm": 11, "hybrid": 12}[cfg.family]
+    return 1 + (0 if cfg.tie_embeddings else 1) + per_layer * cfg.num_layers
+
+
+def lm_sampled_draws(done):
+    """Gumbel draws of a sampled engine run: one a step for each occupied
+    slot (an empty slot draws nothing). A request holds its slot for
+    len(prompt) + len(out_tokens) - 1 steps: one a prompt token (the last
+    also emits the first token), then one a further token."""
+    return sum(len(r.prompt) + len(r.out_tokens) - 1 for r in done)
+
+
+def run_lm_engine(model, params, dev, reqs, slots, greedy, max_len=LM_MAX_LEN):
+    """Serve ``reqs`` through a ServingEngine; returns (engine, {rid:
+    tokens}, host seconds of ``run``, which ends with the ids on the
+    host)."""
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(model, params, slots=slots, max_len=max_len,
+                        greedy=greedy, seed=LM_SEED, device=dev)
+    for rid, prompt, n in reqs:
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+    t0 = time.perf_counter()
+    done = eng.run()
+    return eng, {r.rid: r.out_tokens for r in done}, \
+        time.perf_counter() - t0
+
+
+def replay_rows(model, params, prompt, tokens, device):
+    """The logits (numpy) that chose each of ``tokens``: the request
+    decoded alone on ``device`` with its tokens forced."""
+    import torch
+    cache = model.init_cache(params, 1, len(prompt) + len(tokens))
+    rows = []
+    for pos, t in enumerate(list(prompt) + list(tokens[:-1])):
+        lg, cache = model.decode_step(
+            params, cache, torch.full((1, 1), int(t), device=device), pos)
+        if pos >= len(prompt) - 1:
+            rows.append(lg[0, 0].float().cpu().numpy())
+    return rows
+
+
+def tokens_agree(want, got, want_rows, got_rows, tol, noise=None) -> int:
+    """The margin rule for one request: the logits that chose each token
+    within ``tol`` of ``want_rows``, and the tokens equal while the chosen
+    score (logits, + Gumbel noise when sampled) leads the runner-up by
+    more than 2 * tol; from a nearer tie on only the logits are compared.
+    Returns how many tokens it compared; raises on a disagreement."""
+    import numpy as np
+    for j, w in enumerate(want):
+        gap = float(np.max(np.abs(got_rows[j] - want_rows[j])))
+        if not gap <= tol:
+            raise AssertionError(f"token {j}: logits differ by {gap}")
+        score = want_rows[j] + (0.0 if noise is None else noise[j])
+        second, first = np.sort(score)[-2:]
+        if first - second <= 2 * tol:
+            return j
+        if j >= len(got) or got[j] != w:
+            raise AssertionError(f"token {j}: {got} against {want}")
+    if len(got) != len(want):
+        raise AssertionError(f"{got} against {want}")
+    return len(want)
+
+
+def lm_serving_phase(dev, reduced=False):
+    """LM serving through the Model decode API (module docstring, phase
+    12): the engine at qwen1.5-0.5b's full width, greedy and sampled, the
+    int8 cache, the serve launcher on the three families at full width,
+    then the reduced models on the card against the CPU port.
+    ``reduced`` runs (a) to (c) on the reduced configs (a rehearsal on
+    the CPU)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng, trees
+
+    cfg = get_config(LM_ARCH, reduced=reduced)
+    model = build_model(cfg)
+    reqs = lm_requests(cfg.vocab_size)
+    stats = {"requests": len(reqs), "slots": LM_SLOTS,
+             "max_len": LM_MAX_LEN}
+    # (a) greedy at slots 8: the initial weights' draws and nothing else
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    params = model.init(prng.key(0), dev)
+    eng, greedy, secs = run_lm_engine(model, params, dev, reqs, LM_SLOTS,
+                                      True)
+    launches = read_launches()
+    want = {"defended_encode": 0, "zo_update": 0, "dual_matmul": 0,
+            "flash_attention": 0, "prng_draw": lm_init_draws(cfg)}
+    if launches != want:
+        raise AssertionError(f"LM serving launches {launches}, want {want}")
+    tokens = sum(len(t) for t in greedy.values())
+    if tokens != sum(n for _, _, n in reqs):
+        raise AssertionError(f"greedy run generated {tokens} tokens")
+    stats["bf16"] = {"tok_per_s": tokens / secs, "steps": eng.steps,
+                     "ms_per_step": secs * 1e3 / eng.steps, "tokens": tokens,
+                     "run_s": secs, "cache_bytes": trees.tree_bytes(
+                         eng.cache),
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(f"[lm] {LM_ARCH} {cfg.num_params()} params, {cfg.dtype}, greedy at "
+        f"slots {LM_SLOTS}: {json.dumps(stats['bf16'])}, launches "
+        f"{launches}")
+    # sampled at slots 8 and 3: the same tokens for every rid; draws: one
+    # a step for each occupied slot (lm_sampled_draws)
+    sampled = {}
+    for slots in LM_SAMPLED_SLOTS:
+        zero_launches()
+        eng_s, sampled[slots], secs = run_lm_engine(model, params, dev, reqs,
+                                                    slots, False)
+        launches = read_launches()
+        want = {"defended_encode": 0, "zo_update": 0, "dual_matmul": 0,
+                "flash_attention": 0,
+                "prng_draw": lm_sampled_draws(eng_s.completed)}
+        if launches != want:
+            raise AssertionError(f"sampled serving at slots {slots}: "
+                                 f"launches {launches}, want {want}")
+        n = sum(len(t) for t in sampled[slots].values())
+        stats[f"sampled_slots{slots}"] = {
+            "tok_per_s": n / secs, "steps": eng_s.steps,
+            "ms_per_step": secs * 1e3 / eng_s.steps, "draws":
+                launches["prng_draw"]}
+        log(f"[lm] sampled at slots {slots}: "
+            f"{json.dumps(stats[f'sampled_slots{slots}'])}")
+    a, b = LM_SAMPLED_SLOTS
+    if sampled[a] != sampled[b]:
+        raise AssertionError(f"sampled tokens depend on the slots: "
+                             f"{sampled[a]} against {sampled[b]}")
+    # (b) the int8 cache
+    model8 = build_model(cfg.replace(kv_cache_dtype="int8"))
+    eng8, _, secs = run_lm_engine(model8, params, dev, reqs, LM_SLOTS, True)
+    ratio = trees.tree_bytes(eng8.cache) / stats["bf16"]["cache_bytes"]
+    if not ratio < 0.6:
+        raise AssertionError(f"int8 cache is {ratio:.3f} of the bf16 one")
+    logits, _ = model8.decode_step(
+        params, eng8.cache, torch.zeros((eng8.rows, 1), dtype=torch.int64,
+                                        device=dev),
+        torch.arange(eng8.rows, device=dev) + 300)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("int8 cache: non-finite logits")
+    n = sum(len(r.out_tokens) for r in eng8.completed)
+    stats["int8"] = {"tok_per_s": n / secs, "steps": eng8.steps,
+                     "ms_per_step": secs * 1e3 / eng8.steps,
+                     "cache_ratio": ratio}
+    log(f"[lm] int8 cache at slots {LM_SLOTS}: {json.dumps(stats['int8'])}")
+    del eng, eng_s, eng8, params, logits
+    torch.cuda.empty_cache()
+    stats["launcher"] = lm_launchers(dev, reduced)
+    stats["reduced"] = lm_reduced_checks(dev)
+    return stats
+
+
+def lm_launchers(dev, reduced=False):
+    """(c) ``launch/serve.py``'s main at full width with its defaults
+    (batch 4, prompt 32, gen 16) for each family; every step's logits
+    finite (folded into one flag on the card, read at the end), launches
+    exactly the initial weights' draws."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_mod
+
+    decode = model_mod.Model.decode_step
+    out = {}
+    for arch in LM_LAUNCHERS:
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+
+        def checked(self, params, cache, token, pos):
+            nonlocal finite
+            logits, cache = decode(self, params, cache, token, pos)
+            finite = finite & torch.isfinite(logits).all()
+            return logits, cache
+        model_mod.Model.decode_step = checked
+        text = io.StringIO()
+        try:
+            zero_launches()
+            with contextlib.redirect_stdout(text):
+                ids = serve.main(["--arch", arch, "--device", str(dev)]
+                                 + (["--reduced"] if reduced else []))
+            launches = read_launches()
+        finally:
+            model_mod.Model.decode_step = decode
+        line = next(s for s in text.getvalue().splitlines()
+                    if "tok_per_s=" in s)
+        log(f"[lm] {line}")
+        nums = {k: float(v) for k, v in re.findall(
+            r"(prefill_s|decode_s|tok_per_s)=(\S+)", line)}
+        cfg = get_config(arch, reduced=reduced)
+        want = {"defended_encode": 0, "zo_update": 0, "dual_matmul": 0,
+                "flash_attention": 0, "prng_draw": lm_init_draws(cfg)}
+        if launches != want or not bool(finite) or ids.shape != (4, 16):
+            raise AssertionError(f"serve {arch}: launches {launches} (want "
+                                 f"{want}), finite {bool(finite)}, ids "
+                                 f"{ids.shape}")
+        out[arch] = {**nums, "params": cfg.num_params()}
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_reduced_checks(dev):
+    """(d) Each family's reduced f32 model on the card against the CPU
+    port, weights from seed 1: 10 decode steps' logits within LM_TOL;
+    continuous batching (6 requests at 2 slots) greedy, tokens by the
+    margin rule; the dense forward (the f32 flash_attention kernel, its
+    launches counted), the prefill step, against token-by-token decode
+    within LM_CONSISTENCY_TOL; hymba decoding 80 steps past its window of
+    64 through a rolling buffer of 64, logits finite and within LM_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng
+
+    devs = {"card": dev, "cpu": torch.device("cpu")}
+    out = {}
+    for arch in LM_LAUNCHERS:
+        cfg = get_config(arch, reduced=True)
+        model = build_model(cfg)
+        params = {k: model.init(prng.key(1), d) for k, d in devs.items()}
+        toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 10))
+        logits = {}
+        for k, d in devs.items():
+            cache = model.init_cache(params[k], 2, 16)
+            rows = []
+            for pos in range(10):
+                lg, cache = model.decode_step(
+                    params[k], cache,
+                    torch.as_tensor(toks[:, pos:pos + 1], device=d), pos)
+                rows.append(lg)
+            logits[k] = torch.cat(rows, dim=1)
+        gap = float((logits["card"].cpu() - logits["cpu"]).abs().max())
+        if not gap <= LM_TOL:
+            raise AssertionError(f"{arch}: card decode logits {gap} off")
+        res = {"decode_gap": gap}
+        # continuous batching, card against CPU
+        reqs = lm_requests(cfg.vocab_size, n=6, seed=3, prompt=(3, 10),
+                           new=(2, 7))
+        runs = {k: run_lm_engine(model, params[k], d, reqs, 2, True,
+                                 max_len=32)[1] for k, d in devs.items()}
+        compared = total = 0
+        for rid, prompt, _ in reqs:
+            want, got = runs["cpu"][rid], runs["card"][rid]
+            compared += tokens_agree(
+                want, got,
+                replay_rows(model, params["cpu"], prompt, want, devs["cpu"]),
+                replay_rows(model, params["card"], prompt, want, dev),
+                LM_TOL)
+            total += len(want)
+        if not compared >= 0.8 * total:
+            raise AssertionError(f"{arch}: only {compared} of {total} "
+                                 "tokens outside a near tie")
+        res["tokens_compared"] = [compared, total]
+        if cfg.family == "dense":
+            zero_launches()
+            t = torch.as_tensor(toks, device=dev)
+            full = step_lib.make_prefill_step(model)(
+                params["card"], {"tokens": t, "targets": t})
+            flash = read_launches()["flash_attention"]
+            gap = float((full - logits["card"]).abs().max())
+            if flash != cfg.num_layers or not gap <= LM_CONSISTENCY_TOL:
+                raise AssertionError(f"dense forward on the card: {flash} "
+                                     f"flash launches, {gap} from decode")
+            res.update(forward_vs_decode=gap, flash_launches=flash)
+        if cfg.family == "hybrid":
+            seq = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                                    (1, 80))
+            last = {}
+            for k, d in devs.items():
+                cache = model.init_cache(params[k], 1, 96)
+                if cache["layers"]["kv"]["k"].shape[2] != cfg.sliding_window:
+                    raise AssertionError("hymba cache is not a rolling "
+                                         "buffer of its window")
+                for pos in range(80):
+                    lg, cache = model.decode_step(
+                        params[k], cache,
+                        torch.as_tensor(seq[:, pos:pos + 1], device=d), pos)
+                last[k] = lg
+            gap = float((last["card"].cpu() - last["cpu"]).abs().max())
+            if not (bool(torch.isfinite(last["card"]).all())
+                    and gap <= LM_TOL):
+                raise AssertionError(f"hymba past its window: gap {gap}")
+            res["past_window_gap"] = gap
+        log(f"[lm] reduced {arch} card vs CPU: {json.dumps(res)}")
+        out[arch] = res
+    return out
+
 # ------------------------------------------------------------ vfl-zoo phase --
 
 ZOO_STEPS = 5
@@ -2673,10 +3024,36 @@ def _serve_workload(dev):
         "prediction"
 
 
+def _lm_workload(dev):
+    """The LM-serving cell: phase 12 (a)'s engine (qwen1.5-0.5b at full
+    width, bf16, slots 8, max_len 512, greedy) on its 16 requests, 8 engine
+    steps of warm-up, then 32 steps (every slot busy: a request holds its
+    slot for at least 31 steps, and 8 more wait in the queue)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.utils import prng
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    eng = ServingEngine(model, model.init(prng.key(0), dev), slots=LM_SLOTS,
+                        max_len=LM_MAX_LEN, device=dev)
+    for rid, prompt, n in lm_requests(cfg.vocab_size):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+    for _ in range(8):
+        eng.step()
+
+    def run():
+        for _ in range(32):
+            eng.step()
+    return run, 32, "engine_step"
+
+
 def profile_phase(dev, cell):
     """Trace one cell's workload with ``torch.profiler``: 2 serial rounds of
     a D7 FCN cell ("d7", "async"), 4 scan-trainer steps ("scan"), one
-    vfl-zoo step ("zoo") or 128 served predictions ("serve"). Each
+    vfl-zoo step ("zoo"), 128 served predictions ("serve") or 32 LM
+    engine steps ("lm"). Each
     ``prng.bits`` and ``prng.sample_direction`` call is a
     ``record_function`` span; a direction's span holds its bits span."""
     import torch
@@ -2685,7 +3062,7 @@ def profile_phase(dev, cell):
     from repro_torch.utils import prng
 
     run, units, unit = {"zoo": _zoo_workload, "scan": _scan_workload,
-                        "serve": _serve_workload}.get(
+                        "serve": _serve_workload, "lm": _lm_workload}.get(
         cell, lambda _: _fcn_workload(cell))(dev)
 
     plain = {name: getattr(prng, name.split(".")[1]) for name in PROFILE_SPANS}
@@ -2814,7 +3191,7 @@ def main() -> int:
     draw_sass()
 
     if "--profile" in sys.argv[1:]:
-        for cell in ("d7", "async", "scan", "zoo", "serve"):
+        for cell in ("d7", "async", "scan", "zoo", "serve", "lm"):
             profile_phase(dev, cell)
         return 0
     clock = PhaseClock()
@@ -2844,6 +3221,8 @@ def main() -> int:
     log(json.dumps({"audits": audit_phase(
         dev, main_stats["fused_ms_per_round"])}))
     clock.lap("audits")
+    log(json.dumps({"lm_serving": lm_serving_phase(dev)}))
+    clock.lap("lm_serving")
     log(json.dumps({"phase_s": clock.laps}))
 
     sources = {

@@ -2,11 +2,11 @@
 paper's framework knobs, the DP defense and the wire's network model,
 copied from the reference's configs/base.py with the same fields,
 defaults, validation and ``enabled``/``resolved`` semantics.
-``ModelConfig`` keeps the fields the dense family reads; the fields of the
-moe, ssm, hybrid, vlm and audio families, of serving and of remat are
-not ported yet. ``RuntimeConfig`` holds the TCP federation runtime's
-knobs. ``dp/accountant.py`` calibrates ``DPConfig.noise_multiplier``
-from a target epsilon.
+``ModelConfig`` keeps the fields the dense, ssm (rwkv6) and hybrid
+(hymba) families and their serving cache read; the fields of the moe, vlm
+and audio families and of remat are not ported yet. ``RuntimeConfig``
+holds the TCP federation runtime's knobs. ``dp/accountant.py``
+calibrates ``DPConfig.noise_multiplier`` from a target epsilon.
 """
 from __future__ import annotations
 
@@ -16,12 +16,21 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "rwkv6"          # 'rwkv6' | 'mamba2'
+    state_size: int = 16          # N for mamba-style; head_size for rwkv
+    expand: int = 2               # d_inner = expand * d_model (mamba)
+    chunk_size: int = 128         # chunked-scan block length
+    decay_lora_rank: int = 64     # rwkv6 data-dependent decay LoRA rank
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense (the one family ported so far)
+    family: str                   # dense | ssm | hybrid (the ported ones)
     num_layers: int
     d_model: int
-    num_heads: int
+    num_heads: int                # 0 for attention-free archs
     num_kv_heads: int
     d_ff: int
     vocab_size: int
@@ -31,8 +40,12 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     sliding_window: Optional[int] = None   # None = full attention
+    ssm: Optional[SSMConfig] = None
     dtype: str = "bfloat16"
     chunked_ce: bool = False      # vocab-chunked loss (not ported)
+    kv_cache_dtype: str = "model"  # "model" (= activation dtype) | "int8"
+    #                               (quantized serving cache, per-position/
+    #                               head scales: half the decode cache bytes)
     citation: str = ""
 
     @property
@@ -53,23 +66,43 @@ class ModelConfig:
         n_heads = 0 if self.num_heads == 0 else min(self.num_heads, 4)
         ratio = max(1, (self.num_heads or 1) // max(1, self.num_kv_heads or 1))
         kv = 0 if n_heads == 0 else max(1, n_heads // min(ratio, n_heads))
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(self.ssm, chunk_size=16,
+                                      decay_lora_rank=8)
         return dataclasses.replace(
             self, num_layers=2, d_model=d_model, num_heads=n_heads,
             num_kv_heads=kv, head_dim=64 if n_heads else 0,
             d_ff=min(self.d_ff, 512), vocab_size=min(self.vocab_size, 512),
-            sliding_window=(min(self.sliding_window, 64)
-                            if self.sliding_window else None),
+            ssm=ssm, sliding_window=(min(self.sliding_window, 64)
+                                     if self.sliding_window else None),
             dtype="float32")
 
     def num_params(self) -> int:
-        """Parameter count of a dense config (embedding, head, layers)."""
-        d, hd = self.d_model, self.resolved_head_dim
+        """Parameter count: the embedding, the head, the final norm and
+        every layer's leaves, as ``Model.init`` makes them."""
+        d, hd, f = self.d_model, self.resolved_head_dim, self.d_ff
         H, KV = self.num_heads, self.num_kv_heads
         p = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
-        per_layer = d * H * hd + 2 * d * KV * hd + H * hd * d \
-            + 3 * d * self.d_ff + 2 * d
-        if self.qkv_bias:
-            per_layer += (H + 2 * KV) * hd
+        per_layer = 2 * d                                   # the two norms
+        if self.family == "ssm":
+            r = self.ssm.decay_lora_rank
+            # time mix: 5 lerps, w0, u (H x K = d), ln_gamma; the decay
+            # LoRA; r, k, v, g, o. Channel mix: 2 lerps, k, v, r
+            per_layer += 8 * d + 2 * d * r + 5 * d * d
+            per_layer += 2 * d + 2 * d * f + d * d
+        else:
+            per_layer += d * H * hd + 2 * d * KV * hd + H * hd * d \
+                + 3 * d * f
+            if self.qkv_bias:
+                per_layer += (H + 2 * KV) * hd
+        if self.family == "hybrid":
+            di, N = self.ssm.expand * d, self.ssm.state_size
+            nh = di // 64                                   # mamba heads
+            # in_proj, conv (4 taps), bc_proj, dt_proj, dt_bias, A_log, D,
+            # out_proj
+            per_layer += d * 2 * di + 4 * di + d * 2 * N + d * nh \
+                + 3 * nh + di * d
         return int(p + self.num_layers * per_layer)
 
 

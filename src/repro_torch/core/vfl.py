@@ -11,8 +11,9 @@ party) ever cross the boundary.
   * PaperLRModel  — generalized linear model, Eq. (22).
   * PaperFCNModel — party towers are 2-layer FCNs (d_m x 128, 128 x 1,
     ReLU) with scalar output; the server is a (q x 10) FC + softmax CE.
-  * TransformerVFLModel — framework scale: a dense architecture as the
-    server model F_0, fed by the parties' private embedding slices.
+  * TransformerVFLModel — framework scale: an architecture of the
+    registry (dense, rwkv6 or hymba) as the server model F_0, fed by the
+    parties' private embedding slices.
 
 Params are dicts of tensors; ``init_*`` take the device to build them on.
 A round's two tower evaluations go through ``party_forward_pair``: the
@@ -225,7 +226,8 @@ class PaperFCNModel(VFLModel):
 # --------------------------------------------------------- Transformer -----
 
 class TransformerVFLModel(VFLModel):
-    """Framework-scale VFL: a dense architecture as the server model F_0.
+    """Framework-scale VFL: an architecture of the registry (dense, ssm or
+    hybrid) as the server model F_0.
 
     Party m privately owns columns [m*dq : (m+1)*dq) of the embedding
     feature space (dq = d_model/q), its vertical feature slice, plus a

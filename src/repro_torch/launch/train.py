@@ -9,11 +9,12 @@
       --mode vfl-zoo --transport tcp --parties 3 --steps 5 --dropout-at 2 \
       --ckpt-dir DIR                                # then --steps 8 --resume
 
-Mode ``vfl-zoo``: the paper's AsyREVEL black-box VFL training of a dense
-architecture (the server model F_0) fed by q parties' private embedding
-slices, as the reference's ``repro.launch.train --mode vfl-zoo`` runs it
-in memory: the same data, the same batch draws, the same keys, so the
-same ``h`` per step within the tolerance of the float orders. It runs on
+Mode ``vfl-zoo``: the paper's AsyREVEL black-box VFL training of an
+architecture (the server model F_0: dense, rwkv6 or hymba) fed by q
+parties' private embedding slices, as the reference's
+``repro.launch.train --mode vfl-zoo`` runs it in memory: the same data,
+the same batch draws, the same keys, so the same ``h`` per step within
+the tolerance of the float orders. It runs on
 the GPU unless ``--device cpu`` asks for the plain versions of the
 kernels. ``--ckpt-dir`` saves the whole AsyREVEL state after the run (w0,
 the party blocks and the delay ring buffer); ``--resume`` restores the

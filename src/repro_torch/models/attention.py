@@ -1,20 +1,28 @@
-"""Attention: the full-sequence causal self-attention of the dense
-family (GQA/MHA, optional QKV bias, RoPE), mirroring the
-reference's models/attention.py. The softmax runs on the flash_attention
-kernel (kernels/flash_attention.py) where the reference runs its
-pure-jnp ``blocked_attention``; the kernel's mask is position 0..S-1, so
-anything else it does not compute raises here: explicit positions, a
-sliding window. Decode attention and the KV cache come with the serving
-path.
+"""Attention: GQA/MHA causal self-attention with optional QKV bias and
+RoPE, full or sliding-window, and its decode step against a KV cache,
+mirroring the reference's models/attention.py.
+
+Full-sequence causal attention runs on the flash_attention kernel
+(kernels/flash_attention.py) where the reference runs its pure-jnp
+``blocked_attention``; the kernel's mask is position 0..S-1, so explicit
+positions raise. A sliding window routes to ``windowed_attention``, the
+reference's banded q-block scan in plain torch. Decoding attends one new
+token against the cache (``decode_attention``, plain torch, as the
+reference's einsum): the cache holds the model's dtype or int8 with a
+scale per position and kv head, and under a sliding window it is a
+rolling buffer of the window's length.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init
 from repro_torch.utils import prng
+
+NEG_INF = -1e30
 
 
 def attn_init(key, cfg: ModelConfig, device, dtype):
@@ -44,14 +52,154 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _const(value, device) -> torch.Tensor:
+    """An f32 scalar tensor filled on ``device``: a fill launch, where a
+    tensor copied from the host would wait for the device."""
+    return torch.full((), float(np.float32(value)), device=device)
+
+
+def windowed_attention(q, k, v, window: int, *, q_block: int = 512):
+    """Banded causal attention: position t attends to (t - window, t].
+
+    The reference's scan over q blocks: each block attends to the slice of
+    K/V of length window + q_block ending at the block's end (K/V left-
+    padded, padded positions masked), so the work is O(S * window). Scores
+    and softmax in f32, p cast to v's dtype before the p.v product.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    q_block = min(q_block, S)
+    while S % q_block:
+        q_block //= 2
+    span = window + q_block
+    scale = _const(1.0 / np.sqrt(hd), q.device)
+    pad = k.new_zeros((B, span - q_block, KV, hd))
+    kp, vp = torch.cat([pad, k], dim=1), torch.cat([pad, v], dim=1)
+    neg = _const(NEG_INF, q.device)
+    blocks = []
+    for q_start in range(0, S, q_block):
+        qg = q[:, q_start:q_start + q_block].reshape(B, q_block, KV, G, hd)
+        kb, vb = kp[:, q_start:q_start + span], vp[:, q_start:q_start + span]
+        s = torch.einsum("bqkgh,bskh->bqkgs", qg.float(), kb.float()) * scale
+        q_pos = q_start + torch.arange(q_block, device=q.device)
+        kv_pos = q_start - (span - q_block) + torch.arange(span,
+                                                           device=q.device)
+        ok = (kv_pos[None, :] <= q_pos[:, None]) & \
+            (kv_pos[None, :] > q_pos[:, None] - window) & \
+            (kv_pos[None, :] >= 0)
+        s = torch.where(ok[None, :, None, None, :], s, neg)
+        pr = torch.softmax(s, dim=-1).to(vb.dtype)
+        ob = torch.einsum("bqkgs,bskh->bqkgh", pr.float(), vb.float())
+        blocks.append(ob.reshape(B, q_block, H, hd).to(q.dtype))
+    return torch.cat(blocks, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """One token's attention against a (possibly rolling) cache.
+
+    q: (B, 1, H, hd); caches: (B, Smax, KV, hd); cache_len: the valid
+    prefix length, an int or a per-slot (B,) tensor (continuous batching).
+    Positions >= cache_len are masked. Scores divide by sqrt(hd) as a
+    tensor (the reference divides; a Python divisor would multiply by its
+    reciprocal on CUDA).
+    """
+    B, _, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) \
+        / _const(np.sqrt(hd), q.device)
+    cache_len = torch.as_tensor(cache_len, device=q.device).expand(B)
+    valid = torch.arange(Smax, device=q.device)[None, :] < cache_len[:, None]
+    s = torch.where(valid[:, None, None, :], s, _const(NEG_INF, q.device))
+    pr = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgs,bskh->bkgh", pr.float(), v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
 def attn_apply(p, cfg: ModelConfig, x, positions, *, causal: bool = True):
     """Full-sequence self-attention (train / prefill). ``positions`` must be
-    0..S-1 on every row: the kernel masks by position in the sequence."""
-    if cfg.sliding_window is not None and causal:
-        raise NotImplementedError(
-            "sliding-window attention is not ported (no dense config sets "
-            "it); the flash_attention kernel computes full attention only")
+    0..S-1 on every row: the kernel and the window mask by position in the
+    sequence. A causal sliding window takes ``windowed_attention``, as the
+    reference's does; everything else the flash_attention kernel."""
     q, k, v = _project_qkv(p, cfg, x, positions)
-    o = ops.flash_attention(q, k, v, causal=causal)
+    if cfg.sliding_window is not None and causal:
+        o = windowed_attention(q, k, v, cfg.sliding_window)
+    else:
+        o = ops.flash_attention(q, k, v, causal=causal)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def _quantize_kv(t):
+    """(B, KV, hd) -> (int8 values, per-(B, KV) f32 scale): the absmax over
+    hd over 127, then round half to even and clip. Divides by tensors."""
+    t32 = t.float()
+    amax = torch.amax(torch.abs(t32), dim=-1, keepdim=True)
+    scale = torch.maximum(amax, _const(1e-8, t.device)) \
+        / _const(127.0, t.device)
+    q = torch.clamp(torch.round(t32 / scale), -127, 127)
+    return q.to(torch.int8), scale[..., 0]
+
+
+def attn_decode_step(p, cfg: ModelConfig, x, cache, pos):
+    """One decode step. x: (B, 1, d); cache: {"k", "v"} (B, Smax, KV, hd)
+    [+ {"k_scale", "v_scale"} (B, Smax, KV) for the int8 cache]; pos: an
+    int or a per-slot (B,) tensor of absolute positions.
+
+    The new key and value are written into ``cache`` IN PLACE (one indexed
+    assignment per leaf), and the same dict is returned: the reference
+    writes a new cache functionally, which XLA turns into an in-place
+    update under jit, while here a copy would cost the whole cache a step.
+    A caller that needs the cache from before the step clones it.
+
+    With a sliding window the cache is a rolling buffer of the window's
+    length and ``pos`` indexes it modulo that length; RoPE takes the
+    absolute positions.
+    """
+    B = x.shape[0]
+    pos_b = torch.as_tensor(pos, device=x.device).expand(B)
+    q, k, v = _project_qkv(p, cfg, x, pos_b[:, None])
+    Smax = cache["k"].shape[1]
+    slot = pos_b % Smax if cfg.sliding_window is not None else pos_b
+    bidx = torch.arange(B, device=x.device)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _quantize_kv(k[:, 0])
+        vq, vs = _quantize_kv(v[:, 0])
+        cache["k"][bidx, slot] = kq
+        cache["v"][bidx, slot] = vq
+        cache["k_scale"][bidx, slot] = ks
+        cache["v_scale"][bidx, slot] = vs
+        # dequantized in q's dtype, as the reference folds the scales in
+        k_eff = cache["k"].to(q.dtype) * cache["k_scale"][..., None].to(
+            q.dtype)
+        v_eff = cache["v"].to(q.dtype) * cache["v_scale"][..., None].to(
+            q.dtype)
+    else:
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        k_eff, v_eff = cache["k"], cache["v"]
+    cache_len = torch.clamp(pos_b + 1, max=Smax)
+    o = decode_attention(q, k_eff, v_eff, cache_len)
+    return o.reshape(B, 1, -1) @ p["wo"], cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device):
+    """Zeros: (batch, Smax, KV, hd) keys and values in ``dtype`` (or int8
+    with f32 (batch, Smax, KV) scales); Smax is max_len, or the window
+    when that is shorter."""
+    Smax = max_len if cfg.sliding_window is None \
+        else min(max_len, cfg.sliding_window)
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": zeros((batch, Smax, KV, hd), torch.int8),
+                "v": zeros((batch, Smax, KV, hd), torch.int8),
+                "k_scale": zeros((batch, Smax, KV), torch.float32),
+                "v_scale": zeros((batch, Smax, KV), torch.float32)}
+    return {"k": zeros((batch, Smax, KV, hd), dtype),
+            "v": zeros((batch, Smax, KV, hd), dtype)}

@@ -4,6 +4,8 @@ RoPE, SwiGLU and embedding, mirroring the reference's models/layers.py.
 Inits draw the reference's ``jax.random.normal`` bits exactly."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -42,13 +44,21 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_freqs_on(head_dim: int, theta: float, device) -> torch.Tensor:
+    """The f32 inverse frequencies on ``device``, copied there once: a copy
+    from the host waits for the device, and decoding applies RoPE twice a
+    layer a token."""
+    return torch.as_tensor(rope_freqs(head_dim, theta).astype(np.float32),
+                           device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions: (..., S). Rotates the two halves of
     the head dimension in f32, then casts back."""
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta).astype(np.float32),
-                            device=x.device)
+    freqs = _rope_freqs_on(hd, float(theta), x.device)
     ang = positions.float()[..., None] * freqs           # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
@@ -70,6 +80,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     which in bf16 gives another value in over a third of the elements."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return x * (one / (one + torch.exp(-x)))
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot``'s dtype rule: operands of two dtypes promote to the
+    wider one (a bf16 weight against an f32 activation gives f32), where
+    torch's matmul refuses them."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def swiglu_apply(params, x: torch.Tensor) -> torch.Tensor:

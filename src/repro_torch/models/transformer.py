@@ -1,8 +1,10 @@
-"""Layer blocks and the stack over layers, for the dense family,
-mirroring the reference's models/transformer.py. Per-layer params are
-stacked on a leading L axis as in the reference's scan; ``stack_forward``
-is a Python loop over that axis. Remat and sharding constraints have no
-counterpart: nothing here is differentiated or sharded.
+"""Layer blocks and the stack over layers for the dense, ssm (rwkv6) and
+hybrid (hymba) families, full-sequence and one token at a time,
+mirroring the reference's models/transformer.py. Per-layer params and
+per-layer decode caches are stacked on a leading L axis as in the
+reference's scans; ``stack_forward`` and ``stack_decode`` are Python loops
+over that axis. Remat and sharding constraints have no counterpart:
+nothing here is differentiated or sharded.
 """
 from __future__ import annotations
 
@@ -10,16 +12,31 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import ssm as rwkv
 from repro_torch.models.layers import rms_norm, swiglu_apply, swiglu_init
 from repro_torch.utils import prng, trees
+
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def layer_init(key, cfg: ModelConfig, device, dtype):
     ks = prng.split(key, 4)
-    return {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-            "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-            "attn": attn.attn_init(ks[0], cfg, device, dtype),
-            "mlp": swiglu_init(ks[1], cfg.d_model, cfg.d_ff, device, dtype)}
+    p = {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+         "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.family == "dense":
+        p["attn"] = attn.attn_init(ks[0], cfg, device, dtype)
+        p["mlp"] = swiglu_init(ks[1], cfg.d_model, cfg.d_ff, device, dtype)
+    elif cfg.family == "ssm":
+        p["tmix"] = rwkv.rwkv_time_mix_init(ks[0], cfg, device, dtype)
+        p["cmix"] = rwkv.rwkv_channel_mix_init(ks[1], cfg, device, dtype)
+    elif cfg.family == "hybrid":
+        p["attn"] = attn.attn_init(ks[0], cfg, device, dtype)
+        p["mamba"] = mb.mamba_init(ks[1], cfg, device, dtype)
+        p["mlp"] = swiglu_init(ks[2], cfg.d_model, cfg.d_ff, device, dtype)
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    return p
 
 
 def stacked_layers_init(key, cfg: ModelConfig, device, dtype,
@@ -31,14 +48,34 @@ def stacked_layers_init(key, cfg: ModelConfig, device, dtype,
     return trees.tree_map(lambda *xs: torch.stack(xs), *per)
 
 
+def _mix(x, a, m):
+    """The hybrid's parallel heads: x + (0.5 * (a + m)) in f32, cast."""
+    return x + (0.5 * (a.float() + m.float())).to(x.dtype)
+
+
 def block_forward(p, cfg: ModelConfig, x, positions, causal: bool = True):
     """One layer, full sequence. Returns (x, aux_loss); aux is 0 for
-    dense layers."""
+    these families."""
+    if cfg.family == "ssm":
+        h, _ = rwkv.rwkv_time_mix_apply(p["tmix"], cfg,
+                                        rms_norm(x, p["norm1"], cfg.norm_eps))
+        x = x + h.to(x.dtype)
+        h, _ = rwkv.rwkv_channel_mix_apply(
+            p["cmix"], rms_norm(x, p["norm2"], cfg.norm_eps))
+        return x + h.to(x.dtype), 0.0
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
     a, _ = attn.attn_apply(p["attn"], cfg, xn, positions, causal=causal)
-    x = x + a.to(x.dtype)
+    if cfg.family == "hybrid":
+        m, _ = mb.mamba_apply(p["mamba"], cfg, xn)
+        x = _mix(x, a, m)
+    else:
+        x = x + a.to(x.dtype)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + swiglu_apply(p["mlp"], xn).to(x.dtype), 0.0
+
+
+def _layer(stacked, layer: int):
+    return trees.tree_map(lambda t: t[layer], stacked)
 
 
 def stack_forward(stacked, cfg: ModelConfig, x, positions,
@@ -46,7 +83,77 @@ def stack_forward(stacked, cfg: ModelConfig, x, positions,
     """Every layer in order. Returns (x, total_aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(trees.leaves(stacked)[0].shape[0]):
-        x, a = block_forward(trees.tree_map(lambda t: t[layer], stacked),
-                             cfg, x, positions, causal=causal)
+        x, a = block_forward(_layer(stacked, layer), cfg, x, positions,
+                             causal=causal)
         aux = aux + a
     return x, aux
+
+
+# ------------------------------------------------------------------ decode --
+
+def layer_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                     device):
+    if cfg.family == "ssm":
+        return rwkv.rwkv_state_init(cfg, batch, device)
+    c = {"kv": attn.init_kv_cache(cfg, batch, max_len, dtype, device)}
+    if cfg.family == "hybrid":
+        c["ssm"] = mb.mamba_state_init(cfg, batch, device)
+    return c
+
+
+def stacked_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                       n_layers: int, device):
+    """Every layer's cache, zeros stacked on a leading L axis: the slot
+    axis is axis 1 of every leaf."""
+    one = layer_cache_init(cfg, batch, max_len, dtype, device)
+    return trees.tree_map(
+        lambda a: torch.zeros((n_layers,) + tuple(a.shape), dtype=a.dtype,
+                              device=device), one)
+
+
+def block_decode(p, cfg: ModelConfig, x, cache, pos):
+    """One layer, one token. Returns (x, new_cache); the KV cache is
+    written in place (``attn.attn_decode_step``), the recurrent states are
+    new tensors."""
+    if cfg.family == "ssm":
+        h, st = rwkv.rwkv_time_mix_decode(
+            p["tmix"], cfg, rms_norm(x, p["norm1"], cfg.norm_eps),
+            {"S": cache["S"], "x_prev": cache["x_prev"]})
+        x = x + h.to(x.dtype)
+        xn = rms_norm(x, p["norm2"], cfg.norm_eps)
+        h, xp = rwkv.rwkv_channel_mix_apply(
+            p["cmix"], xn, cache["x_prev_ffn"].to(xn.dtype))
+        x = x + h.to(x.dtype)
+        return x, {"S": st["S"], "x_prev": st["x_prev"],
+                   "x_prev_ffn": xp.float()}
+    new_cache = dict(cache)
+    xn = rms_norm(x, p["norm1"], cfg.norm_eps)
+    a, new_cache["kv"] = attn.attn_decode_step(p["attn"], cfg, xn,
+                                               cache["kv"], pos)
+    if cfg.family == "hybrid":
+        m, new_cache["ssm"] = mb.mamba_decode(p["mamba"], cfg, xn,
+                                              cache["ssm"])
+        x = _mix(x, a, m)
+    else:
+        x = x + a.to(x.dtype)
+    xn = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + swiglu_apply(p["mlp"], xn).to(x.dtype), new_cache
+
+
+def stack_decode(stacked, cfg: ModelConfig, x, caches, pos):
+    """Every layer in order, one token, against the stacked ``caches``.
+
+    Each layer decodes against its slice of the stacked caches, and what
+    it returns is written back into that slice IN PLACE; ``caches`` itself
+    is returned (the reference's scan threads new caches through as its
+    outputs, which XLA updates in place under jit). Clone the caches to
+    keep the state from before the step.
+    """
+    def write_back(dst, src):
+        if src is not dst:
+            dst.copy_(src)
+    for layer in range(trees.leaves(stacked)[0].shape[0]):
+        cache_l = _layer(caches, layer)
+        x, new_l = block_decode(_layer(stacked, layer), cfg, x, cache_l, pos)
+        trees.tree_map(write_back, cache_l, new_l)
+    return x, caches

@@ -1,6 +1,6 @@
-"""Federated inference serving of the port (serving/federated.py). The
-reference's LLM decode engine (serving/engine.py) is not ported yet
-(ROADMAP.md, Queue 1 item 11)."""
+"""Serving of the port: LM decoding with continuous batching
+(serving/engine.py) and federated inference (serving/federated.py)."""
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
 from repro_torch.serving.federated import (AnswerCache,  # noqa: F401
                                            FederatedServingEngine,
                                            LocalPartyBackend, ServeRequest,

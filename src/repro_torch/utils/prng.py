@@ -211,19 +211,38 @@ def sample_direction(k: Key, shape, dist: str, device) -> torch.Tensor:
 # Both are jax 0.9.0's formulas on the bits of the same key. The step's
 # party and delays are a handful of values, drawn on the host (CPU
 # tensors) as Python ints; ``randint_on`` draws a minibatch's indices on
-# the device the data lives on.
+# the device the data lives on, and ``categorical_rows`` samples the
+# serving engine's tokens on the device that holds the logits.
 
 _F32_TINY = float(np.finfo(np.float32).tiny)
+_BF16_ONE = 0x3F80
 
 
-def gumbel(k: Key, shape) -> torch.Tensor:
-    """== jax.random.gumbel(k, shape, float32) in its default "low" mode:
-    -log(-log(u)), u = uniform(k, minval=tiny, maxval=1) (the affine map
-    is f32: (1 - tiny) rounds to 1, so u = max(tiny, floats + tiny))."""
-    f = uniform_from_bits(bits(k, shape, "cpu"))
-    tiny = torch.tensor(_F32_TINY, dtype=torch.float32)
-    u = torch.maximum(tiny, f * 1.0 + tiny)
-    return -xla_math.log(-xla_math.log(u))
+def gumbel_from_bits(b: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """== jax.random.gumbel(k, shape, dtype) in its default "low" mode, on
+    the bits of k: -log(-log(u)), u = uniform(k, minval=tiny, maxval=1) in
+    ``dtype`` (f32 or bf16; the affine map rounds (1 - tiny) to 1, so
+    u = max(tiny, floats + tiny)). A bf16 draw fills its 7 mantissa bits
+    from the low 8 bits of each word (jax draws 8 bits for a float of
+    fewer than 8 mantissa bits), and each log rounds XLA's f32 log to
+    bf16."""
+    if dtype == torch.float32:
+        f = uniform_from_bits(b)
+    elif dtype == torch.bfloat16:
+        b8 = b.to(torch.int64) & 0xFF
+        one = torch.ones((), dtype=dtype, device=b.device)
+        f = ((b8 >> 1) | _BF16_ONE).to(torch.int16).view(dtype) - one
+    else:
+        raise TypeError(f"gumbel draws f32 or bf16, not {dtype}")
+    tiny = torch.full((), _F32_TINY, dtype=dtype, device=b.device)
+    u = torch.maximum(tiny, f + tiny)
+    return -xla_math.log(-xla_math.log(u.float()).to(dtype)).to(dtype)
+
+
+def gumbel(k: Key, shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """== jax.random.gumbel(k, shape, dtype) on ``device``: the bits are one
+    draw-kernel launch on a CUDA device."""
+    return gumbel_from_bits(bits(k, shape, device), dtype)
 
 
 def categorical(k: Key, logits: torch.Tensor) -> int:
@@ -233,6 +252,24 @@ def categorical(k: Key, logits: torch.Tensor) -> int:
     if logits.dim() != 1:
         raise ValueError("categorical takes 1-D logits")
     return int(torch.argmax(gumbel(k, logits.shape) + logits))
+
+
+def categorical_rows(keys, logits: torch.Tensor) -> torch.Tensor:
+    """Row i sampled with key ``keys[i]``: == jax.vmap(
+    jax.random.categorical)(keys, logits) for (n, V) f32 or bf16 logits,
+    on the logits' device (one draw launch a row on a CUDA device: the
+    rows' keys differ). The Gumbel noise is drawn in the logits' dtype and
+    added in it, as jax adds it; the argmax takes the first index on
+    ties. A row whose key is None draws nothing (zero bits) and its index
+    means nothing. Returns the (n,) int64 indices on that device."""
+    if logits.dim() != 2 or logits.shape[0] != len(keys):
+        raise ValueError("categorical_rows takes (n, V) logits and n keys")
+    V = logits.shape[1]
+    b = torch.stack([
+        bits(k, (V,), logits.device) if k is not None else
+        torch.zeros((V,), dtype=torch.int32, device=logits.device)
+        for k in keys])
+    return torch.argmax(logits + gumbel_from_bits(b, logits.dtype), dim=-1)
 
 
 def randint_on(k: Key, shape, minval: int, maxval: int,

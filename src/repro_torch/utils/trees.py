@@ -29,3 +29,9 @@ def tree_map(fn, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of the tensors of a tree (the reference's
+    ``utils/trees.tree_bytes``)."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))

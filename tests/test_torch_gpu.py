@@ -3,7 +3,9 @@ defended_encode (from keys and from bits), the draw kernel and zo_update
 bitwise, dual_matmul and flash_attention
 within a stated tolerance (their sums run in another order than the
 plain versions') and bitwise where only their own order is involved, and
-a reduced vfl-zoo step on the card against the same step on the CPU. No jax here: the machine with the card has none. Without a CUDA
+a reduced vfl-zoo step on the card against the same step on the CPU, and
+LM serving (decode, sampling, the engine) on the card against the CPU.
+No jax here: the machine with the card has none. Without a CUDA
 device every test skips (the kernels have no CPU mode); run them there
 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
 import numpy as np
@@ -558,3 +560,91 @@ def test_randint_on_the_card_bitwise_the_host_draw(cuda, shape, minval,
     assert got.device.type == "cuda" and got.dtype == torch.int64
     assert got.cpu().reshape(-1).tolist() == prng.randint(k, shape, minval,
                                                           maxval)
+
+
+# ------------------------------------------------------------ LM serving --
+
+LM_FAMILIES = ["qwen1.5-0.5b", "rwkv6-1.6b", "hymba-1.5b"]
+
+
+def _decode_logits(arch, device, steps=10, **replace):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch, reduced=True).replace(**replace)
+    model = build_model(cfg)
+    params = model.init(prng.key(1), device)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, steps))
+    cache = model.init_cache(params, 2, 16)
+    rows = []
+    for pos in range(steps):
+        lg, cache = model.decode_step(
+            params, cache, torch.as_tensor(toks[:, pos:pos + 1],
+                                           device=device), pos)
+        rows.append(lg)
+    return torch.cat(rows, dim=1).cpu(), model, params, toks
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_reduced_decode_on_the_card_matches_the_cpu(cuda, arch, kv):
+    """10 decode steps of each family, reduced f32, both cache dtypes: the
+    card within 1e-4 of the CPU port (TF32 off; the sums' order differs)."""
+    on_card = _decode_logits(arch, cuda, kv_cache_dtype=kv)[0]
+    on_cpu = _decode_logits(arch, "cpu", kv_cache_dtype=kv)[0]
+    assert float((on_card - on_cpu).abs().max()) <= 1e-4
+
+
+def test_reduced_dense_forward_on_the_card_matches_its_decode(cuda):
+    """The dense forward runs the f32 flash_attention kernel (one launch a
+    layer); token-by-token decode within the reference's 2e-4."""
+    dec, model, params, toks = _decode_logits("qwen1.5-0.5b", cuda)
+    n0 = flash_attention.flash_attention.launches
+    t = torch.as_tensor(toks, device=cuda)
+    full, _ = model.forward(params, {"tokens": t, "targets": t})
+    assert flash_attention.flash_attention.launches == n0 + 2
+    assert float((full.cpu() - dec).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampling_on_the_card_bitwise_the_host(cuda, dtype):
+    """``categorical_rows``: one draw launch a keyed row on the card, the
+    Gumbel chain and the argmax equal to the CPU's on the same logits (an
+    empty row draws nothing)."""
+    logits = torch.randn(4, 151936, generator=torch.Generator().manual_seed(
+        0)).to(dtype)
+    keys = [prng.fold_in(prng.key(11), r) for r in (3, 9)] + [None,
+                                                              (5, 7)]
+    d0 = prng_draw.draw.launches
+    on_card = prng.categorical_rows(keys, logits.to(cuda))
+    assert prng_draw.draw.launches == d0 + 3
+    on_cpu = prng.categorical_rows(keys, logits)
+    assert torch.equal(on_card.cpu()[[0, 1, 3]], on_cpu[[0, 1, 3]])
+    g = prng.gumbel(keys[0], (1000,), cuda, dtype).cpu()
+    assert torch.isfinite(g).all()
+    assert _same_bits(g, prng.gumbel(keys[0], (1000,), "cpu", dtype))
+
+
+def test_engine_on_the_card_gives_the_cpus_tokens(cuda):
+    """Continuous batching (6 requests at 2 slots) of reduced qwen, greedy
+    and sampled: the card's tokens equal the CPU port's (the logits sit
+    ~1e-6 apart; chip_smoke.py's phase 12 holds every family to the
+    margin rule), and sampled tokens at 2 slots equal those at 3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServingEngine
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    model = build_model(cfg)
+    rng = np.random.default_rng(0)
+    reqs = [(rid, rng.integers(0, 512, int(rng.integers(3, 10))),
+             int(rng.integers(2, 7))) for rid in range(6)]
+
+    def run(device, greedy, slots=2):
+        eng = ServingEngine(model, model.init(prng.key(0), device),
+                            slots=slots, max_len=32, greedy=greedy, seed=11,
+                            device=device)
+        for rid, prompt, n in reqs:
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+        return {r.rid: r.out_tokens for r in eng.run()}
+    for greedy in (True, False):
+        assert run(cuda, greedy) == run("cpu", greedy)
+    assert run(cuda, False) == run(cuda, False, slots=3)

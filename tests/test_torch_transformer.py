@@ -73,10 +73,19 @@ def test_dense_configs_equal_the_reference(arch, reduced):
 
 
 def test_other_families_are_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_config("qwen3-moe-30b-a3b")
+    """The moe, vlm and audio architectures raise; rwkv6 and hymba build."""
+    for name in ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "chameleon-34b",
+                 "whisper-small"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            get_config(name)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+    for name, family in (("rwkv6-1.6b", "ssm"), ("hymba-1.5b", "hybrid")):
+        cfg = get_config(name, reduced=True)
+        assert cfg.family == family
+        assert build_model(cfg).init(prng.key(0), "cpu")["layers"]
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_model(get_config("qwen1.5-0.5b").replace(family="moe"))
 
 
 # -------------------------------------------------------------- draws ----
@@ -216,14 +225,23 @@ def test_attention_forward_and_loss(arch):
 
 
 def test_forward_refuses_what_the_kernel_does_not_compute():
+    """Explicit positions raise (the kernel masks by position 0..S-1); a
+    sliding window takes the windowed attention, held against the
+    reference's forward (window 4 over S 24, so the band cuts)."""
     model = build_model(get_config("qwen1.5-0.5b", reduced=True))
     params = model.init(prng.key(0), "cpu")
     _, tb = _batch(model.cfg, 1, 8, 0)
     with pytest.raises(NotImplementedError, match="positions"):
         model.forward(params, dict(tb, positions=torch.zeros(1, 8)))
-    windowed = model.cfg.replace(sliding_window=4)
-    with pytest.raises(NotImplementedError, match="sliding"):
-        attention.attn_apply(trees.tree_map(lambda a: a[0],
-                                            params["layers"]["attn"]),
-                             windowed, torch.zeros(1, 8, 256),
-                             torch.arange(8)[None])
+    ref_model = ref_build_model(ref_get_config(
+        "qwen1.5-0.5b", reduced=True).replace(sliding_window=4))
+    windowed = build_model(model.cfg.replace(sliding_window=4))
+    ref_params = ref_model.init(jax.random.key(1))
+    tparams = params_from_numpy(_np_tree(ref_params), "cpu")
+    jb, tb = _batch(model.cfg, 2, 24, 3)
+    logits, _ = windowed.forward(tparams, tb)
+    want, _ = ref_model.forward(ref_params, jb)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want),
+                               atol=FWD_TOL, rtol=FWD_TOL)
+    full, _ = build_model(model.cfg).forward(tparams, tb)
+    assert not np.allclose(logits.numpy(), full.numpy(), atol=FWD_TOL)
