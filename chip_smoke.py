@@ -16,14 +16,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    of 20 after warm-up) and the bound (the larger of bytes over the
    memory rate and operations over the rate of their pipe: f32, or for
    threefry's rotates and xors the INT32 lanes). defended_encode draws its
-   noise and rounding bits from the keys in the kernel, at 2048, 2^21 and
-   2^24 for every codec x mechanism (and clip only, and int8 without a
+   noise and rounding bits from the keys in the kernel, at 2048, the
+   vfl-zoo payloads (344064, 2^21, 2^22) and 2^24 for every codec x
+   mechanism (and clip only, and int8 without a
    rounding key), bitwise equal to the plain chain on the eager bits of
    the same keys; its rows also carry the profiler-traced time and the
    time of the same kernel reading pre-made bits from device memory. The
    draw kernel (bits, normal, rademacher) is bitwise equal to the eager
    chain at 2048, 12 544, 2^24 and qwen1.5-0.5b's embedding (155 582 464),
-   and on a counter range across 2^32. zo_update is bitwise; dual_matmul
+   and on a counter range across 2^32, and without timing rows at the
+   sizes only other phases draw, up to chameleon-34b's embedding (536 870
+   912 words; the eager chain in pieces of 2^26 words). zo_update is
+   bitwise; dual_matmul
    (f32 and bf16, ragged shapes too, and the batch-2048 and batch-64
    shapes the driven paths give it) within
    a stated relative tolerance, plus exact checks: its perturbed product is
@@ -37,7 +41,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    CUDA-core one (4MKN at the f32 rate) and the tensor-core one its line
    reports (3 x 4MKN at the TF32 rate, or the bytes). flash_attention
    (causal at the vfl-zoo shape in bf16 and f32, yi-34b's GQA heads, a
-   ragged S, full attention) within a stated relative tolerance, and in
+   ragged S, full attention, and phase 13's vfl-zoo shapes in bf16:
+   qwen3-moe's GQA 32/4 at hd 128 and S 2048, whisper's encoder, full at
+   S 1500, and decoder, causal at S 448) within a stated relative
+   tolerance, and in
    bf16 element by element within half a bf16 ulp of the plain version's
    f32 result. Both its kernels run on the tensor cores, which the build
    checks in each kernel's own SASS functions (counted with
@@ -47,7 +54,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    two, both products at the f32 rate of the CUDA cores and, as the line's
    bound, three tf32 products each at the TF32 rate. Its library time is
    PyTorch's scaled_dot_product_attention, which the port never calls; at
-   the vfl-zoo and yi-34b shapes the rows also carry both device times
+   the vfl-zoo shapes and yi-34b's the rows also carry both device times
    (profiler-traced), and the f32 kernel must take less than SDPA at the
    vfl-zoo shape.
 3. Main path: the defended AsyREVEL party round (Algorithm 1,
@@ -114,7 +121,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parent launches nothing during a federation, and no process is left
    alive after one. Host-clock ms per party update of (a) and (c) beside
    the in-process ``run_serial``'s.
-8. At the end, after 9 to 12: the ``{"kernels": [...]}`` line, the card
+8. At the end, after 9 to 13: the ``{"kernels": [...]}`` line, the card
    line, and last ``{"ok": true, "device": {...}}``.
 9. Serving: federated inference (``serving.federated``, and over TCP
    ``runtime.run_tcp_serving``) on the runtime phase's D7 FCN without DP
@@ -183,6 +190,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (the f32 flash_attention kernel, one launch a layer) within 2e-4 of
    token-by-token decode, and hymba decoding 80 steps past its window of
    64 through a rolling buffer of 64, finite and within 1e-4 of the CPU.
+13. The moe, vlm and audio families (``families_phase``), bf16, random
+   weights from seed 0: (a) ``launch/serve.py``'s ``main`` with its
+   defaults at full width and depth for qwen3-moe-30b-a3b (48 layers, d
+   2048, 128 experts top-8), chameleon-34b (48 layers, d 8192, qk-norm)
+   and whisper-small (12 + 12 layers, 1500 frames), one model on the card
+   at a time: parameters and bf16 bytes before each loads, ``prefill_s``,
+   ``decode_s``, ``tok_per_s`` and the peak after; every step's logits
+   finite; launches the initial weights' draws (``lm_init_draws``) and
+   whisper's 12 encoder layers (one flash_attention each in
+   ``init_cache``). phi3.5-moe (83.7 GB in bf16) does not fit one card
+   and runs reduced only. (b) vfl-zoo as the launcher builds and steps
+   it (``train.make_zoo_run``, ``train.draw_batch``), fused int8, q = 4,
+   batch 4, 3 steps: whisper-small at full size at S 448, and qwen3-moe
+   at full width with 2 of its layers at S 2048 (the server's ZO update
+   holds ~14 bytes a parameter); launches exact (per
+   step 3 x the layers' flash_attention, the encoder's too, 5
+   defended_encode, a draw a server leaf and 3; the initial weights'),
+   h finite, the first within 1.0 of ln V (+ the router's balanced aux
+   loss); s per step and the peak. (c) Each new architecture reduced
+   (f32) on the card against the CPU port: initial weights bitwise,
+   forward and decode logits within 1e-4, the greedy engine at 8 slots step by step
+   (``steps_agree``: a moe row depends on its co-tenants, so both decode
+   8 rows), 3 vfl-zoo steps for each of 3 seeds, every step run on both
+   from the card's state, h within 1e-3. (d) The MoE layer at
+   qwen3-moe's vfl-zoo width, two router columns equal: two calls bitwise
+   equal, ties to the lower expert.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
@@ -190,8 +223,9 @@ round and the async experiment's configuration, 4 steps of the scan
 trainer's defended D7 cell (asyrevel, K = 1), one step of the
 vfl-zoo cell, 128 predictions of the serving cell in memory at slots
 8 (after 64 of warm-up), and 32 engine steps of the LM-serving cell
-(phase 12 (a)'s greedy engine, after 8 of warm-up), with
-``torch.profiler``,
+(phase 12 (a)'s greedy engine, after 8 of warm-up), and phase 13's
+cells: one vfl-zoo step of qwen3-moe (2 layers) and of whisper-small,
+and 8 decode steps of each full model of (a), with ``torch.profiler``,
 printing the device-busy share, the kernels by device time, the
 flash_attention kernels' device time and launches, and what the draws
 cost in that trace: each ``prng.bits`` and ``prng.sample_direction``
@@ -349,13 +383,21 @@ def device_ms(fn, n=20) -> float:
     return s.elapsed_time(e) / n
 
 
+# the records a trace may lose, over all of its kernels, and still count
+TRACE_LOST_MAX = 2
+
+
 def traced_ms(fn, n=20, tries=5) -> float:
     """The device time of fn's kernels per call, from ``torch.profiler``'s
-    trace of n calls: the sum of their durations over n, whatever the host
-    time between them (for a kernel of a few us the queued calls of
-    ``device_ms`` wait on the host). fn launches the same kernels on every
-    call, so a trace whose kernel count is not a multiple of n lost events
-    (seen on the card: none, or about half) and is taken again."""
+    trace of n calls, whatever the host time between them (for a kernel of
+    a few us the queued calls of ``device_ms`` wait on the host). fn
+    launches the same kernels on every call, so each kernel's count of
+    records is m * n for its m launches a call; a trace can lose records
+    (seen on the card: all, about half, or one of a kernel's 20 in five
+    traces running). Each kernel counts as its mean duration times m (its
+    count over n, rounded); a trace that lost more than TRACE_LOST_MAX
+    records, or recorded none, is taken again. Two spin kernels trail the
+    n calls in each trace and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -366,17 +408,26 @@ def traced_ms(fn, n=20, tries=5) -> float:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
+            for _ in range(2):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        launches = sum(e.count for e in events)
-        if launches and launches % n == 0:
-            break
-        log(f"[traced_ms] {launches} kernels in a trace of {n} calls; "
-            f"tracing again ({attempt + 1} of {tries})")
-    else:
-        raise AssertionError(f"no complete trace of {n} calls in {tries}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / n
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.key and e.count]
+        per_call, lost = 0.0, 0
+        for e in events:
+            m = max(1, round(e.count / n))
+            lost += abs(m * n - e.count)
+            per_call += e.self_device_time_total / e.count * m
+        records = sum(e.count for e in events)
+        if events and lost <= TRACE_LOST_MAX:
+            if lost:
+                log(f"[traced_ms] {records} kernel records in a trace of "
+                    f"{n} calls: {lost} lost, each kernel timed by its mean")
+            return per_call / 1e3
+        log(f"[traced_ms] {records} kernel records in a trace of {n} calls, "
+            f"{lost} lost; tracing again ({attempt + 1} of {tries})")
+    raise AssertionError(f"no complete trace of {n} calls in {tries}")
 
 
 def bitwise_equal(a, b) -> bool:
@@ -400,10 +451,11 @@ def max_abs(a, b) -> float:
 
 # ------------------------------------------------------------ kernel phase --
 
-# defended_encode's sizes: D7's payload, the vfl-zoo payload (4 x 2048 x
-# 256, kept on chip by the int8 kernel) and 2^24 (past what it keeps: the
-# second sweep)
-ENCODE_SIZES = (2048, 1 << 21, 1 << 24)
+# defended_encode's sizes: D7's payload, the vfl-zoo payloads (a party's c
+# of 4 x S x d/4: 4 x 448 x 192 on whisper-small, 4 x 2048 x 256 on
+# qwen1.5-0.5b, 4 x 2048 x 512 on qwen3-moe) and 2^24 (past what the int8
+# kernel keeps on chip: the second sweep)
+ENCODE_SIZES = (2048, 344064, 1 << 21, 1 << 22, 1 << 24)
 # (dp mechanism, noise multiplier): none, gaussian, laplace, clip only
 DEFENSES = ((None, None), ("gaussian", 1.3), ("laplace", 1.3),
             ("gaussian", 0.0))
@@ -550,10 +602,24 @@ DRAW_SIZES = (1, 10, 16, 20, 80, 128, 256, 1024, 2048, 12544, 24576, 32768,
               1 << 20, 2883584, 1 << 24, 25165824, 38895616, 69206016,
               155582464)
 DRAW_RANGES = ((5003, (1 << 32) - 1000), (1 << 24, (1 << 32) - (1 << 23)))
-# the sizes only the runtime's and serving's problems draw, checked bitwise
-# without timing rows: the FCN labels' two bit streams (n = 60000) and X
-# (60000 x 784)
-DRAW_CHECKED = (60000, 47040000)
+# the sizes only the runtime's, serving's and phase 13's problems draw,
+# checked bitwise without timing rows: the FCN labels' two bit streams (n =
+# 60000) and X (60000 x 784); then every phase-13 draw not listed above
+# (initial weights and vfl-zoo directions). whisper-small: the final norms
+# (768), the stacked norms (12 x 768), a 768 x 768 and a 768 x 3072 matrix
+# and their stacks (12 x ...), a party's embedding slice (51865 x 192) and
+# the embedding (51865 x 768). qwen3-moe at full width, 2 layers in
+# vfl-zoo: the stacked norms (2 x 2048), a party's w1 and w2 (512 x 128),
+# the router (2048 x 128) and its stack (2 x ...), wk/wv stacked (2 x 2048
+# x 512), wq/wo (2048 x 4096), a party's embedding slice (151936 x 512),
+# an expert stack (128 x 2048 x 768) and its 2 layers (2 x ...), the
+# embedding (151936 x 2048). chameleon-34b: the modality embedding (2 x
+# 8192), wk/wv (8192 x 1024), wq/wo (8192 x 8192), the MLP's (8192 x
+# 22016) and the embedding (65536 x 8192)
+DRAW_CHECKED = (60000, 47040000, 768, 4096, 9216, 16384, 65536, 262144,
+                524288, 589824, 2097152, 2359296, 7077888, 8388608, 9958080,
+                28311552, 39832320, 67108864, 77791232, 180355072, 201326592,
+                311164928, 402653184, 536870912)
 SERVING_ENCODE_SIZES = (1, 7, 8, 63, 64)
 
 
@@ -599,17 +665,39 @@ def draw_phase(dev, int_rate):
                 timed = row
             torch.cuda.empty_cache()
     for n in DRAW_CHECKED:
-        k = (0x5EED, n)
-        for mode in ("bits", "normal"):
-            got = prng_draw.draw(k, (n,), mode, dev)
-            want = prng.draw_plain(k, (n,), mode, dev)
-            if not bitwise_equal(got, want):
-                raise AssertionError(f"prng_draw != the eager chain: {mode} "
-                                     f"n={n}")
-            worst = max(worst, max_abs(got, want))
-            del got, want
-            torch.cuda.empty_cache()
+        worst = max(worst, draw_checked(dev, n))
     return timed, worst
+
+
+# the eager chain of a large draw runs in pieces of this many words (its
+# int64 counters and f32 temporaries of 537M words would not fit the card)
+DRAW_PIECE = 1 << 26
+
+
+def draw_checked(dev, n) -> float:
+    """The draw kernel's bits and normal of n words against the eager chain,
+    bitwise, the chain run over pieces of the counter range (a piece from
+    counter lo is the slice [lo, lo + m) of the whole stream). Returns the
+    largest difference (0)."""
+    import torch
+    from repro_torch.kernels import prng_draw
+    from repro_torch.utils import prng
+
+    k = (0x5EED, n)
+    worst = 0.0
+    for mode in ("bits", "normal"):
+        got = prng_draw.draw(k, (n,), mode, dev)
+        for lo in range(0, n, DRAW_PIECE):
+            m = min(DRAW_PIECE, n - lo)
+            want = prng.draw_plain(k, (m,), mode, dev, lo)
+            if not bitwise_equal(got[lo:lo + m], want):
+                raise AssertionError(f"prng_draw != the eager chain: {mode} "
+                                     f"n={n}, words {lo} to {lo + m}")
+            worst = max(worst, max_abs(got[lo:lo + m], want))
+            del want
+        del got
+        torch.cuda.empty_cache()
+    return worst
 
 
 # f32 at D7 (the main path), the reference bench's shape, a large square and
@@ -714,8 +802,13 @@ def dual_matmul_phase(dev):
 
 # (B, S, H, KV, hd, dtype, causal): the vfl-zoo path's shape (qwen1.5-0.5b
 # at batch 4, sequence 2048) in both types, yi-34b's GQA heads, a ragged S
-# and full (non-causal) attention
+# and full (non-causal) attention; phase 13's vfl-zoo shapes: qwen3-moe's
+# GQA heads (32 over 4, hd 128) at batch 4, S 2048, whisper-small's encoder
+# (full, S 1500) and decoder (causal, S 448), both ragged
 FLASH_CASES = [(4, 2048, 16, 16, 64, "bf16", True),
+               (4, 2048, 32, 4, 128, "bf16", True),
+               (4, 1500, 12, 12, 64, "bf16", False),
+               (4, 448, 12, 12, 64, "bf16", True),
                (4, 2048, 16, 16, 64, "f32", True),
                (1, 1024, 56, 8, 128, "bf16", True),
                (1, 1024, 56, 8, 128, "f32", True),
@@ -772,8 +865,11 @@ def flash_bound(B, S, H, KV, hd, esize, causal):
 
 
 # the shapes whose rows also carry device times (the profiler's kernel
-# durations): the vfl-zoo path's and yi-34b's GQA heads, in both types
-FLASH_TRACED = ((4, 2048, 16, 16, 64), (1, 1024, 56, 8, 128))
+# durations): the vfl-zoo paths' (qwen1.5-0.5b's, qwen3-moe's, whisper's
+# encoder and decoder) and yi-34b's GQA heads
+FLASH_TRACED = ((4, 2048, 16, 16, 64), (1, 1024, 56, 8, 128),
+                (4, 2048, 32, 4, 128), (4, 1500, 12, 12, 64),
+                (4, 448, 12, 12, 64))
 
 
 def flash_phase(dev):
@@ -2398,13 +2494,20 @@ def lm_requests(vocab, n=LM_REQUESTS, seed=0, prompt=(16, 257),
 
 def lm_init_draws(cfg):
     """Draws of a Model's initial weights (one a matrix drawn from normal):
-    the embedding, the head unless tied, and per layer 7 (dense: wq, wk,
-    wv, wo, w_gate, w_up, w_down), 11 (ssm: the time mix's 2 LoRA
-    matrices, 5 projections and u; the channel mix's 3) or 12 (hybrid: 4
-    attention, 5 mamba (in_proj, conv_w, bc_proj, dt_proj, out_proj), 3
-    mlp)."""
-    per_layer = {"dense": 7, "ssm": 11, "hybrid": 12}[cfg.family]
-    return 1 + (0 if cfg.tie_embeddings else 1) + per_layer * cfg.num_layers
+    the embedding, the head unless tied, and per layer 7 (dense and vlm:
+    wq, wk, wv, wo, w_gate, w_up, w_down), 8 (moe: the 4 attention
+    matrices, the router and the 3 expert stacks), 11 (audio's decoder:
+    dense's 7 and the cross attention's wq, wk, wv, wo), 11 (ssm: the time
+    mix's 2 LoRA matrices, 5 projections and u; the channel mix's 3) or 12
+    (hybrid: 4 attention, 5 mamba (in_proj, conv_w, bc_proj, dt_proj,
+    out_proj), 3 mlp); then 7 an encoder layer (audio) and the modality
+    embedding (vlm). The q/k gammas and the norms are ones, not draws."""
+    per_layer = {"dense": 7, "vlm": 7, "moe": 8, "audio": 11, "ssm": 11,
+                 "hybrid": 12}[cfg.family]
+    return 1 + (0 if cfg.tie_embeddings else 1) \
+        + per_layer * cfg.num_layers \
+        + (7 * cfg.num_encoder_layers if cfg.enc_dec else 0) \
+        + (1 if cfg.frontend == "vq_stub" else 0)
 
 
 def lm_sampled_draws(done):
@@ -2554,11 +2657,15 @@ def lm_serving_phase(dev, reduced=False):
     return stats
 
 
-def lm_launchers(dev, reduced=False):
+def lm_launchers(dev, reduced=False, archs=LM_LAUNCHERS):
     """(c) ``launch/serve.py``'s main at full width with its defaults
-    (batch 4, prompt 32, gen 16) for each family; every step's logits
-    finite (folded into one flag on the card, read at the end), launches
-    exactly the initial weights' draws."""
+    (batch 4, prompt 32, gen 16) for each of ``archs``; every step's
+    logits finite (folded into one flag on the card, read at the end),
+    launches exactly the initial weights' draws (and an encoder-decoder's
+    encoder layers, one flash_attention each, as ``init_cache`` encodes
+    the frames). Before each model loads: its parameters and their bytes
+    in its dtype; after: the peak memory. One model at a time: each is
+    freed before the next loads."""
     import contextlib
     import io
     import re
@@ -2570,7 +2677,11 @@ def lm_launchers(dev, reduced=False):
 
     decode = model_mod.Model.decode_step
     out = {}
-    for arch in LM_LAUNCHERS:
+    for arch in archs:
+        cfg = get_config(arch, reduced=reduced)
+        nbytes = cfg.num_params() * model_mod.DTYPES[cfg.dtype].itemsize
+        log(f"[lm] serve {arch}: {cfg.num_params()} params, "
+            f"{nbytes / 1e9:.1f} GB in {cfg.dtype}")
         finite = torch.ones((), dtype=torch.bool, device=dev)
 
         def checked(self, params, cache, token, pos):
@@ -2580,6 +2691,7 @@ def lm_launchers(dev, reduced=False):
             return logits, cache
         model_mod.Model.decode_step = checked
         text = io.StringIO()
+        torch.cuda.reset_peak_memory_stats(dev)
         try:
             zero_launches()
             with contextlib.redirect_stdout(text):
@@ -2588,19 +2700,21 @@ def lm_launchers(dev, reduced=False):
             launches = read_launches()
         finally:
             model_mod.Model.decode_step = decode
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         line = next(s for s in text.getvalue().splitlines()
                     if "tok_per_s=" in s)
-        log(f"[lm] {line}")
+        log(f"[lm] {line} peak {peak_gb:.2f} GB")
         nums = {k: float(v) for k, v in re.findall(
             r"(prefill_s|decode_s|tok_per_s)=(\S+)", line)}
-        cfg = get_config(arch, reduced=reduced)
         want = {"defended_encode": 0, "zo_update": 0, "dual_matmul": 0,
-                "flash_attention": 0, "prng_draw": lm_init_draws(cfg)}
+                "flash_attention": cfg.num_encoder_layers if cfg.enc_dec
+                else 0, "prng_draw": lm_init_draws(cfg)}
         if launches != want or not bool(finite) or ids.shape != (4, 16):
             raise AssertionError(f"serve {arch}: launches {launches} (want "
                                  f"{want}), finite {bool(finite)}, ids "
                                  f"{ids.shape}")
-        out[arch] = {**nums, "params": cfg.num_params()}
+        out[arch] = {**nums, "params": cfg.num_params(),
+                     "param_gb": nbytes / 1e9, "peak_gb": peak_gb}
         torch.cuda.empty_cache()
     return out
 
@@ -2690,6 +2804,337 @@ def lm_reduced_checks(dev):
                 raise AssertionError(f"hymba past its window: gap {gap}")
             res["past_window_gap"] = gap
         log(f"[lm] reduced {arch} card vs CPU: {json.dumps(res)}")
+        out[arch] = res
+    return out
+
+# ------------------------------------------- phase 13: moe, vlm, audio --
+
+FAMILY_ARCHS = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "chameleon-34b",
+                "whisper-small")
+# at full width and depth through the serve launcher; phi3.5-moe's 83.7 GB
+# in bf16 do not fit one 80 GB card, so it runs reduced only, in (c)
+FAMILY_SERVE = ("qwen3-moe-30b-a3b", "chameleon-34b", "whisper-small")
+FAMILY_ZOO_STEPS = 3
+# (arch, layers, S) of the vfl-zoo runs: whisper-small at full size and its
+# published decoder context; qwen3-moe at full width with 2 of its 48
+# layers (the server's ZO update holds ~14 bytes a parameter: ~26 GB at 2
+# layers, ~430 GB at 48)
+FAMILY_ZOO = (("whisper-small", None, 448), ("qwen3-moe-30b-a3b", 2, 2048))
+FAMILY_ZOO_ARGS = ["--mode", "vfl-zoo", "--parties", "4", "--batch-size",
+                   "4", "--fused", "--codec", "int8", "--log-every", "1"]
+FAMILY_SLOTS = 8
+
+
+def server_leaves(arch) -> int:
+    """Leaves of an architecture's server params (w0): the reduced model's
+    tree, which has the same leaves, built on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng, trees
+    model = build_model(get_config(arch, reduced=True))
+    return len(trees.leaves(model.init(prng.key(0), "cpu")))
+
+
+def families_phase(dev, reduced=False):
+    """The moe, vlm and audio families (module docstring, phase 13): the
+    serve launcher at full width and depth, vfl-zoo at full width, then
+    every new architecture reduced on the card against the CPU port.
+    ``reduced`` runs (a) and (b) on the reduced configs (a rehearsal on
+    the CPU)."""
+    stats = {"launcher": lm_launchers(dev, reduced, FAMILY_SERVE)}
+    stats["vfl_zoo"] = {arch: families_zoo(dev, arch, layers, seq, reduced)
+                        for arch, layers, seq in FAMILY_ZOO}
+    stats["moe_dispatch"] = moe_repeat_check(dev, reduced)
+    stats["reduced"] = families_reduced_checks(dev)
+    return stats
+
+
+def moe_repeat_check(dev, reduced=False):
+    """(d) The MoE layer at qwen3-moe's vfl-zoo width (128 experts, top 8,
+    d 2048, d_ff_expert 768; 4 x 2048 tokens, bf16) with experts 1 and 2
+    given the same router column: two calls bitwise equal (the dispatch's
+    scatter and gather use no atomics), and every tie to the lower expert
+    (2 never without 1, and after it). ``reduced``: at d 256 and
+    d_ff_expert 64 (a rehearsal on the CPU)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.utils import prng
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    if reduced:
+        cfg = cfg.replace(d_model=256, moe=dataclasses.replace(
+            cfg.moe, d_ff_expert=64))
+    p = moe.moe_init(prng.key(5), cfg, dev, torch.bfloat16)
+    p["router"][:, 2] = p["router"][:, 1]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(4, 2048, cfg.d_model, device=dev, generator=gen).to(
+        torch.bfloat16)
+    a, aux_a = moe.moe_apply(p, cfg, x)
+    b, aux_b = moe.moe_apply(p, cfg, x)
+    _, _, idx = moe.route(p, cfg, x.reshape(-1, cfg.d_model))
+    one, two = (idx == 1), (idx == 2)
+    both = one.any(1) & two.any(1)
+    first = torch.argmax(one.int(), 1) < torch.argmax(two.int(), 1)
+    res = {"bitwise_repeat": bitwise_equal(a, b) and bitwise_equal(aux_a,
+                                                                   aux_b),
+           "tokens_with_both": int(both.sum()),
+           "tokens_with_1_only": int((one.any(1) & ~two.any(1)).sum()),
+           "tokens_with_2_only": int((two.any(1) & ~one.any(1)).sum()),
+           "finite": bool(torch.isfinite(a).all())}
+    log(f"[families] moe dispatch at qwen3-moe's width: {json.dumps(res)}")
+    if not (res["bitwise_repeat"] and res["finite"]
+            and res["tokens_with_2_only"] == 0
+            and bool(first[both].all())):
+        raise AssertionError(f"moe dispatch on the card: {res}")
+    del p, x, a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_zoo_run(dev, arch, layers, seq_len, reduced=False, argv=()):
+    """A vfl-zoo run of ``arch`` as the launcher builds it
+    (``train.make_zoo_run``; fused int8, q = 4, batch 4, plus ``argv``),
+    ``layers`` of the config's depth where given: (cfg, args, step,
+    state, data)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config(arch, reduced=reduced)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    args = train.parse_args(["--arch", arch, "--seq-len", str(seq_len)]
+                            + FAMILY_ZOO_ARGS + list(argv))
+    _, step, state, data = train.make_zoo_run(args, cfg, dev)
+    return cfg, args, step, state, data
+
+
+def families_zoo(dev, arch, layers, seq_len, reduced=False):
+    """(b) vfl-zoo as the launcher runs it (``family_zoo_run``, batches by
+    ``train.draw_batch``), 3 steps, at the config's full width (``layers``
+    of its depth where given). Launches exact: per step one
+    flash_attention a layer (the encoder's too) in each of the three
+    forwards, 5 defended_encode (4 c's and one c_hat) and one draw a
+    perturbed leaf (every server leaf and the activated party's 3); the
+    initial weights' draws (the server's and 3 a party). Every h finite,
+    the first within 1.0 of ln V plus the router's aux loss at a balanced
+    load (coef * K a layer). ``reduced``: the reduced config at S 16 (a
+    rehearsal on the CPU)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+
+    steps = FAMILY_ZOO_STEPS
+    leaves = server_leaves(arch)
+    seq_len = 16 if reduced else seq_len
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    cfg, args, step, state, data = family_zoo_run(
+        dev, arch, None if reduced else layers, seq_len, reduced)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    log(f"[families] vfl-zoo {arch}: {cfg.num_params()} params, "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, S {seq_len}")
+    rng = np.random.default_rng(args.seed)
+    h, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, h_t = step(state, train.draw_batch(rng, data,
+                                                  args.batch_size))
+        h.append(float(h_t))
+        step_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    del state, data
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    depth = cfg.num_layers + (cfg.num_encoder_layers if cfg.enc_dec else 0)
+    want = {"flash_attention": 3 * depth * steps,
+            "defended_encode": 5 * steps, "dual_matmul": 0, "zo_update": 0,
+            "prng_draw": (leaves + 3) * steps + lm_init_draws(cfg) + 3 * 4}
+    aux = cfg.moe.router_aux_coef * cfg.moe.top_k * cfg.num_layers \
+        if cfg.moe is not None else 0.0
+    center = math.log(cfg.vocab_size) + aux
+    log(f"[families] vfl-zoo {arch}: setup {setup_s:.2f} s, s per "
+        f"step {[round(t, 4) for t in step_s]}, h {h}, peak "
+        f"{peak_gb:.2f} GB, launches {launches}")
+    if launches != want:
+        raise AssertionError(f"vfl-zoo {arch} launches {launches}, want "
+                             f"{want}")
+    if len(h) != steps or not all(math.isfinite(x) for x in h) \
+            or not abs(h[0] - center) < 1.0:
+        raise AssertionError(f"vfl-zoo {arch}: h {h}, the first not within "
+                             f"1.0 of {center:.4f}")
+    return {"params": cfg.num_params(), "layers": cfg.num_layers,
+            "seq_len": seq_len, "h": h, "step_s": step_s,
+            "setup_s": setup_s, "peak_gb": peak_gb, "launches": launches}
+
+
+# (c)'s vfl-zoo check: the seeds (initial weights and data) it runs, and
+# |h_card - h_cpu| allowed at each step
+ZOO_CHECK_SEEDS = (0, 1, 2)
+ZOO_CHECK_TOL = 1e-3
+
+
+def zoo_steps_agree(dev, arch, seed):
+    """(c)'s vfl-zoo check of one seed: 3 steps of the reduced ``arch``
+    (S 128, lr 1e-2) on the card, each step also run on the CPU from a
+    copy of the same state and batch; returns each step's |h_card -
+    h_cpu|. Both sides start every step from one state, so a routing
+    near-tie that one side breaks otherwise cannot reach the next step's
+    weights through 1/mu (PERF.md, PR 23)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.utils import trees
+
+    _, args, step, state, data = family_zoo_run(
+        dev, arch, None, 128, reduced=True,
+        argv=["--lr", "1e-2", "--seed", str(seed)])
+    rng = np.random.default_rng(args.seed)
+    gaps = []
+    for _ in range(FAMILY_ZOO_STEPS):
+        batch = train.draw_batch(rng, data, args.batch_size)
+        on_cpu = state._replace(**{f: trees.tree_map(
+            lambda a: a.cpu(), getattr(state, f))
+            for f in ("w0", "parties", "hist")})
+        _, h_cpu = step(on_cpu, {k: a.cpu() for k, a in batch.items()})
+        state, h = step(state, batch)
+        gaps.append(abs(float(h) - float(h_cpu)))
+    return gaps
+
+
+def engine_steps(model, params, dev, reqs, frames, slots=FAMILY_SLOTS):
+    """Greedy ``ServingEngine`` at ``slots`` (``slots`` rows: the moe
+    family's rows depend on their co-tenants, so both sides decode the
+    same rows) over ``reqs``; returns each step's logits (numpy, a row a
+    slot)."""
+    import torch
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import Request, ServingEngine
+
+    rows = []
+    decode = model_mod.Model.decode_step
+
+    def recording(self, *a):
+        lg, c = decode(self, *a)
+        rows.append(lg[:, 0].float().cpu().numpy())
+        return lg, c
+    eng = ServingEngine(model, params, slots=slots, max_len=32,
+                        frames=None if frames is None
+                        else torch.as_tensor(frames, device=dev),
+                        device=dev)
+    if eng.rows != slots:
+        raise AssertionError(f"engine at {slots} slots decodes {eng.rows}")
+    for rid, prompt, n in reqs:
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+    model_mod.Model.decode_step = recording
+    try:
+        eng.run()
+    finally:
+        model_mod.Model.decode_step = decode
+    return rows
+
+
+def steps_agree(want_rows, got_rows, tol) -> int:
+    """Two engines step by step: every row's logits within ``tol``, the
+    chosen tokens equal while each row's top logit leads its runner-up by
+    more than 2 * tol; from a nearer tie on the schedules may part, so
+    the comparison stops. Returns the steps compared."""
+    import numpy as np
+    compared = 0
+    for w, g in zip(want_rows, got_rows):
+        gap = float(np.abs(w - g).max())
+        if not gap <= tol:
+            raise AssertionError(f"engine step {compared}: logits {gap} off")
+        top2 = np.sort(w, axis=-1)[:, -2:]
+        if np.any(top2[:, 1] - top2[:, 0] <= 2 * tol):
+            break
+        if not np.array_equal(np.argmax(g, -1), np.argmax(w, -1)):
+            raise AssertionError(f"engine step {compared}: tokens differ")
+        compared += 1
+    return compared
+
+
+def families_reduced_checks(dev):
+    """(c) Each new architecture reduced (f32) on the card against the CPU
+    port, weights from seed 1 (bitwise the CPU's): the forward's logits
+    (the f32 flash_attention kernel, one launch a layer, the encoder's too)
+    within
+    LM_TOL; 10 decode steps from ``init_cache`` (whisper's frames encoded
+    into the cross K/V) within LM_TOL; the greedy engine at 8 slots over
+    11 requests step by step (``steps_agree``); 3 fused int8 vfl-zoo steps
+    of each seed in ZOO_CHECK_SEEDS, each from one state on both
+    (``zoo_steps_agree``), h within ZOO_CHECK_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng, trees
+
+    devs = {"card": dev, "cpu": torch.device("cpu")}
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        model = build_model(cfg)
+        params = {k: model.init(prng.key(1), d) for k, d in devs.items()}
+        if not all(bitwise_equal(a.cpu(), b) for a, b in zip(
+                trees.leaves(params["card"]), trees.leaves(params["cpu"]))):
+            raise AssertionError(f"{arch}: the card's initial weights are "
+                                 "not the CPU's")
+        rng = np.random.default_rng(2)
+        toks = rng.integers(0, cfg.vocab_size, (2, 10))
+        frames = rng.normal(size=(FAMILY_SLOTS, cfg.encoder_frames,
+                                  cfg.d_model)).astype(np.float32) \
+            if cfg.enc_dec else None
+        mask = (rng.random((2, 10)) < 0.3).astype(np.int32)
+        fwd, dec = {}, {}
+        for k, d in devs.items():
+            batch = {"tokens": torch.as_tensor(toks, device=d),
+                     "targets": torch.as_tensor(toks, device=d)}
+            if cfg.enc_dec:
+                batch["frames"] = torch.as_tensor(frames[:2], device=d)
+            if cfg.frontend == "vq_stub":
+                batch["modality_mask"] = torch.as_tensor(mask, device=d)
+            zero_launches()
+            fwd[k] = model.forward(params[k], batch)[0].cpu()
+            flash = read_launches()["flash_attention"]
+            if k == "card" and flash != cfg.num_layers + (
+                    cfg.num_encoder_layers if cfg.enc_dec else 0):
+                raise AssertionError(f"{arch} forward: {flash} flash "
+                                     "launches")
+            cache = model.init_cache(params[k], 2, 16,
+                                     frames=batch.get("frames"))
+            rows = []
+            for pos in range(10):
+                lg, cache = model.decode_step(
+                    params[k], cache, batch["tokens"][:, pos:pos + 1], pos)
+                rows.append(lg.cpu())
+            dec[k] = torch.cat(rows, dim=1)
+        res = {"forward_gap": float((fwd["card"] - fwd["cpu"]).abs().max()),
+               "decode_gap": float((dec["card"] - dec["cpu"]).abs().max())}
+        if not (res["forward_gap"] <= LM_TOL and res["decode_gap"] <= LM_TOL
+                and bool(torch.isfinite(fwd["card"]).all())):
+            raise AssertionError(f"{arch} card vs CPU: {res}")
+        reqs = lm_requests(cfg.vocab_size, n=11, seed=3, prompt=(3, 10),
+                           new=(2, 7))
+        runs = {k: engine_steps(model, params[k], d, reqs, frames)
+                for k, d in devs.items()}
+        compared = steps_agree(runs["cpu"], runs["card"], LM_TOL)
+        if not compared >= 0.8 * len(runs["cpu"]):
+            raise AssertionError(f"{arch}: the engines agree for {compared} "
+                                 f"of {len(runs['cpu'])} steps")
+        res["engine_steps_compared"] = [compared, len(runs["cpu"])]
+        res["zoo_h_gaps"] = {seed: zoo_steps_agree(dev, arch, seed)
+                             for seed in ZOO_CHECK_SEEDS}
+        if not all(g < ZOO_CHECK_TOL for gaps in res["zoo_h_gaps"].values()
+                   for g in gaps):
+            raise AssertionError(f"{arch} vfl-zoo card vs CPU: h gaps "
+                                 f"{res['zoo_h_gaps']}")
+        log(f"[families] reduced {arch} card vs CPU: {json.dumps(res)}")
         out[arch] = res
     return out
 
@@ -3049,11 +3494,65 @@ def _lm_workload(dev):
     return run, 32, "engine_step"
 
 
+def _families_zoo_workload(dev, arch, layers, seq_len):
+    """One vfl-zoo step of phase 13 (b)'s run of ``arch``
+    (``family_zoo_run``), after a warm-up step."""
+    import numpy as np
+    from repro_torch.launch import train
+
+    _, args, step, state, data = family_zoo_run(dev, arch, layers, seq_len)
+    batch = train.draw_batch(np.random.default_rng(args.seed), data,
+                             args.batch_size)
+    state, h = step(state, batch)
+    float(h)
+    return (lambda: float(step(state, batch)[1])), 1, "step"
+
+
+def _families_serve_workload(dev, arch):
+    """8 decode steps of phase 13 (a)'s serve launcher on ``arch`` (full
+    width and depth, bf16, batch 4; whisper's frames encoded into the
+    cache), after its 32-token prompt and 4 generated tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(prng.key(0), dev)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 44)),
+                           device=dev)
+    frames = torch.as_tensor(rng.normal(size=(
+        4, cfg.encoder_frames, cfg.d_model)).astype(np.float32),
+        device=dev) if cfg.enc_dec else None
+    cache = model.init_cache(params, 4, 48, frames=frames)
+    for pos in range(36):
+        model.decode_step(params, cache, toks[:, pos:pos + 1], pos)
+
+    def run():
+        for pos in range(36, 44):
+            model.decode_step(params, cache, toks[:, pos:pos + 1], pos)
+    return run, 8, "decode_step"
+
+
+# phase 13's cells for --profile: one vfl-zoo step of each (b) run, 8
+# decode steps of each (a) model
+FAMILY_PROFILE = {
+    "moe_zoo": lambda dev: _families_zoo_workload(dev, *FAMILY_ZOO[1]),
+    "audio_zoo": lambda dev: _families_zoo_workload(dev, *FAMILY_ZOO[0]),
+    "moe_serve": lambda dev: _families_serve_workload(dev, FAMILY_SERVE[0]),
+    "vlm_serve": lambda dev: _families_serve_workload(dev, FAMILY_SERVE[1]),
+    "audio_serve": lambda dev: _families_serve_workload(dev, FAMILY_SERVE[2]),
+}
+
+
 def profile_phase(dev, cell):
     """Trace one cell's workload with ``torch.profiler``: 2 serial rounds of
     a D7 FCN cell ("d7", "async"), 4 scan-trainer steps ("scan"), one
-    vfl-zoo step ("zoo"), 128 served predictions ("serve") or 32 LM
-    engine steps ("lm"). Each
+    vfl-zoo step ("zoo"), 128 served predictions ("serve"), 32 LM
+    engine steps ("lm") or a cell of phase 13 (``FAMILY_PROFILE``). Each
     ``prng.bits`` and ``prng.sample_direction`` call is a
     ``record_function`` span; a direction's span holds its bits span."""
     import torch
@@ -3062,7 +3561,8 @@ def profile_phase(dev, cell):
     from repro_torch.utils import prng
 
     run, units, unit = {"zoo": _zoo_workload, "scan": _scan_workload,
-                        "serve": _serve_workload, "lm": _lm_workload}.get(
+                        "serve": _serve_workload, "lm": _lm_workload,
+                        **FAMILY_PROFILE}.get(
         cell, lambda _: _fcn_workload(cell))(dev)
 
     plain = {name: getattr(prng, name.split(".")[1]) for name in PROFILE_SPANS}
@@ -3141,6 +3641,8 @@ def profile_phase(dev, cell):
     out["bits_call_ms_12544"] = time_ms(
         lambda: plain["prng.bits"]((1, 2), (12544,), dev))
     log(json.dumps({"profile": out}))
+    del run, prof
+    torch.cuda.empty_cache()        # the next cell's model may need the room
 
 
 class PhaseClock:
@@ -3191,7 +3693,8 @@ def main() -> int:
     draw_sass()
 
     if "--profile" in sys.argv[1:]:
-        for cell in ("d7", "async", "scan", "zoo", "serve", "lm"):
+        for cell in ("d7", "async", "scan", "zoo", "serve", "lm",
+                     *FAMILY_PROFILE):
             profile_phase(dev, cell)
         return 0
     clock = PhaseClock()
@@ -3223,6 +3726,8 @@ def main() -> int:
     clock.lap("audits")
     log(json.dumps({"lm_serving": lm_serving_phase(dev)}))
     clock.lap("lm_serving")
+    log(json.dumps({"families": families_phase(dev)}))
+    clock.lap("families")
     log(json.dumps({"phase_s": clock.laps}))
 
     sources = {

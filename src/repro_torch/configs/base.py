@@ -2,9 +2,9 @@
 paper's framework knobs, the DP defense and the wire's network model,
 copied from the reference's configs/base.py with the same fields,
 defaults, validation and ``enabled``/``resolved`` semantics.
-``ModelConfig`` keeps the fields the dense, ssm (rwkv6) and hybrid
-(hymba) families and their serving cache read; the fields of the moe, vlm
-and audio families and of remat are not ported yet. ``RuntimeConfig``
+``ModelConfig`` keeps the fields every family of the registry reads
+(dense, moe, ssm, hybrid, vlm, audio) and their serving cache; remat and
+the scan over layers have no counterpart here. ``RuntimeConfig``
 holds the TCP federation runtime's knobs. ``dp/accountant.py``
 calibrates ``DPConfig.noise_multiplier`` from a target epsilon.
 """
@@ -13,6 +13,15 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01  # load-balance auxiliary loss
 
 
 @dataclass(frozen=True)
@@ -27,7 +36,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | ssm | hybrid (the ported ones)
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int                # 0 for attention-free archs
@@ -36,11 +45,21 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
     qkv_bias: bool = False
+    qk_norm: bool = False         # chameleon-style stabilization
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    pos_emb: str = "rope"         # rope | sinusoidal | none
     norm_eps: float = 1e-5
     sliding_window: Optional[int] = None   # None = full attention
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # --- enc-dec (whisper) ---
+    enc_dec: bool = False
+    num_encoder_layers: int = 0
+    encoder_frames: int = 1500    # precomputed conv-frontend frames (stub
+    #                               input)
+    # --- modality frontend stub ---
+    frontend: str = "none"        # none | audio_stub | vq_stub
     dtype: str = "bfloat16"
     chunked_ce: bool = False      # vocab-chunked loss (not ported)
     kv_cache_dtype: str = "model"  # "model" (= activation dtype) | "int8"
@@ -60,12 +79,17 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: <=2 layers, d_model<=256, f32 (the
-        reference's rule, field for field)."""
+        """Smoke-test variant: <=2 layers, d_model<=256, <=4 experts, f32
+        (the reference's rule, field for field)."""
         d_model = min(self.d_model, 256)
         n_heads = 0 if self.num_heads == 0 else min(self.num_heads, 4)
         ratio = max(1, (self.num_heads or 1) // max(1, self.num_kv_heads or 1))
         kv = 0 if n_heads == 0 else max(1, n_heads // min(ratio, n_heads))
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(self.moe, num_experts=4,
+                                      top_k=min(self.moe.top_k, 2),
+                                      d_ff_expert=128)
         ssm = None
         if self.ssm is not None:
             ssm = dataclasses.replace(self.ssm, chunk_size=16,
@@ -74,16 +98,42 @@ class ModelConfig:
             self, num_layers=2, d_model=d_model, num_heads=n_heads,
             num_kv_heads=kv, head_dim=64 if n_heads else 0,
             d_ff=min(self.d_ff, 512), vocab_size=min(self.vocab_size, 512),
-            ssm=ssm, sliding_window=(min(self.sliding_window, 64)
-                                     if self.sliding_window else None),
+            moe=moe, ssm=ssm,
+            num_encoder_layers=min(self.num_encoder_layers, 2),
+            encoder_frames=min(self.encoder_frames, 32),
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else None),
             dtype="float32")
 
     def num_params(self) -> int:
-        """Parameter count: the embedding, the head, the final norm and
-        every layer's leaves, as ``Model.init`` makes them."""
-        d, hd, f = self.d_model, self.resolved_head_dim, self.d_ff
-        H, KV = self.num_heads, self.num_kv_heads
+        """Parameter count: the embedding, the head, the final norm, every
+        layer's leaves and, where the family has them, the encoder and
+        the modality embedding, as ``Model.init`` makes them (the
+        reference's count leaves out the norms and the q/k gammas, and
+        takes whisper's encoder MLP as two matrices)."""
+        d, L = self.d_model, self.num_layers
         p = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+        p += L * self._layer_params()
+        if self.enc_dec:
+            enc = self.replace(enc_dec=False, sliding_window=None)
+            p += self.num_encoder_layers * enc._layer_params() + d
+        if self.frontend == "vq_stub":
+            p += 2 * d                                      # modality_embed
+        return int(p)
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        H, KV = self.num_heads, self.num_kv_heads
+        p = d * H * hd + 2 * d * KV * hd + H * hd * d
+        if self.qkv_bias:
+            p += (H + 2 * KV) * hd
+        if self.qk_norm:
+            p += 2 * hd                                     # q/k gammas
+        return p
+
+    def _layer_params(self) -> int:
+        """One layer's leaves: the two norms and the family's blocks."""
+        d, f = self.d_model, self.d_ff
         per_layer = 2 * d                                   # the two norms
         if self.family == "ssm":
             r = self.ssm.decay_lora_rank
@@ -91,11 +141,15 @@ class ModelConfig:
             # LoRA; r, k, v, g, o. Channel mix: 2 lerps, k, v, r
             per_layer += 8 * d + 2 * d * r + 5 * d * d
             per_layer += 2 * d + 2 * d * f + d * d
+            return per_layer
+        per_layer += self._attn_params()
+        if self.moe is not None:
+            E, fe = self.moe.num_experts, self.moe.d_ff_expert
+            per_layer += d * E + 3 * E * d * fe             # router, experts
         else:
-            per_layer += d * H * hd + 2 * d * KV * hd + H * hd * d \
-                + 3 * d * f
-            if self.qkv_bias:
-                per_layer += (H + 2 * KV) * hd
+            per_layer += 3 * d * f                          # swiglu
+        if self.enc_dec:
+            per_layer += self._attn_params() + d            # cross, norm3
         if self.family == "hybrid":
             di, N = self.ssm.expand * d, self.ssm.state_size
             nh = di // 64                                   # mamba heads
@@ -103,7 +157,7 @@ class ModelConfig:
             # out_proj
             per_layer += d * 2 * di + 4 * di + d * 2 * N + d * nh \
                 + 3 * nh + di * d
-        return int(p + self.num_layers * per_layer)
+        return per_layer
 
 
 @dataclass(frozen=True)

@@ -6,7 +6,9 @@
 
 The reference's ``repro.launch.serve`` with the same flags, plus
 ``--device``: the card unless ``--device cpu`` asks for the plain versions.
-Random weights and prompts from ``--seed``; the prompt is prefilled by
+Random weights and prompts from ``--seed`` (whisper's stub encoder frames
+too, drawn after the prompts and encoded once into the cache's cross
+K/V); the prompt is prefilled by
 replaying it through the decode step (right for every family, the
 recurrent states included), then ``--gen-len`` tokens are decoded, greedy
 or, with ``--temperature``, sampled. Logs ``prefill_s``, ``decode_s`` and
@@ -63,8 +65,13 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
                               device=device)
+    frames = None
+    if cfg.enc_dec:
+        frames = torch.as_tensor(rng.normal(
+            size=(B, cfg.encoder_frames, cfg.d_model)).astype(np.float32),
+            device=device)
     serve_step = step_lib.make_serve_step(model)
-    cache = model.init_cache(params, B, max_len=P + G)
+    cache = model.init_cache(params, B, max_len=P + G, frames=frames)
     _sync(device)
 
     # prefill by replaying the prompt through decode

@@ -10,11 +10,14 @@
       --ckpt-dir DIR                                # then --steps 8 --resume
 
 Mode ``vfl-zoo``: the paper's AsyREVEL black-box VFL training of an
-architecture (the server model F_0: dense, rwkv6 or hymba) fed by q
-parties' private embedding slices, as the reference's
+architecture of the registry (the server model F_0, of any family:
+dense, moe, ssm (rwkv6), hybrid (hymba), vlm (chameleon) or audio
+(whisper)) fed by q parties' private embedding slices, as the reference's
 ``repro.launch.train --mode vfl-zoo`` runs it in memory: the same data,
 the same batch draws, the same keys, so the same ``h`` per step within
-the tolerance of the float orders. It runs on
+the tolerance of the float orders. The parties see the tokens only; the
+stub inputs of the vlm and audio families (the modality mask, the
+encoder's frames) go to the server with the batch. It runs on
 the GPU unless ``--device cpu`` asks for the plain versions of the
 kernels. ``--ckpt-dir`` saves the whole AsyREVEL state after the run (w0,
 the party blocks and the delay ring buffer); ``--resume`` restores the
@@ -83,7 +86,10 @@ NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1)"
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="an architecture of the registry (configs/): "
+                        "dense, moe, ssm (rwkv6), hybrid (hymba), vlm "
+                        "(chameleon) or audio (whisper)")
     p.add_argument("--mode", default="lm", choices=["lm", "vfl-zoo"])
     p.add_argument("--reduced", action="store_true",
                    help="2-layer smoke-size variant (CPU-friendly)")
@@ -240,9 +246,24 @@ def make_dp(args):
 
 
 def make_batch_arrays(cfg, n, seq_len, seed, device):
+    """The reference's dataset: tokens and targets, plus the encoder-
+    decoder's stub frames (n, F, d) f32 from ``default_rng(seed + 1)``
+    and the VQ stub's modality mask (n, S) int32 (30% image tokens) from
+    ``default_rng(seed + 2)``."""
     toks, targets = make_lm_dataset(n, seq_len, cfg.vocab_size, seed)
-    return {"tokens": torch.as_tensor(toks, device=device),
+    data = {"tokens": torch.as_tensor(toks, device=device),
             "targets": torch.as_tensor(targets, device=device)}
+    if cfg.enc_dec:
+        rng = np.random.default_rng(seed + 1)
+        data["frames"] = torch.as_tensor(rng.normal(
+            size=(n, cfg.encoder_frames, cfg.d_model)).astype(np.float32),
+            device=device)
+    if cfg.frontend == "vq_stub":
+        rng = np.random.default_rng(seed + 2)
+        data["modality_mask"] = torch.as_tensor(
+            (rng.random((n, seq_len)) < 0.3).astype(np.int32),
+            device=device)
+    return data
 
 
 def run_tcp(args, cfg, device, log) -> dict:
@@ -456,6 +477,30 @@ def main(argv=None) -> dict:
     return out
 
 
+def make_zoo_run(args, cfg, device):
+    """What an in-memory vfl-zoo run of ``args`` on ``cfg`` starts from:
+    (vfl, step, state, data), the data ``max(64, 8 * batch)`` rows from
+    which each step draws its batch (``main``)."""
+    if cfg.d_model % args.parties:
+        raise ValueError(f"--parties must divide d_model={cfg.d_model}")
+    model = build_model(cfg)
+    n = max(64, args.batch_size * 8)
+    data = make_batch_arrays(cfg, n, args.seq_len, args.seed, device)
+    vfl = VFLConfig(num_parties=args.parties, mu=args.mu, lr_party=args.lr,
+                    lr_server=args.lr / args.parties, dp=make_dp(args),
+                    fused=args.fused, codec=args.codec)
+    _, init, step = step_lib.make_vfl_zoo_step(model, vfl)
+    return vfl, step, init(prng.key(args.seed), device), data
+
+
+def draw_batch(rng, data, batch_size):
+    """One step's batch: ``batch_size`` rows of ``data``, drawn with
+    ``rng`` (numpy) and gathered where the data lives."""
+    idx = torch.as_tensor(rng.integers(0, len(data["tokens"]), batch_size),
+                          device=data["tokens"].device)
+    return {k: a[idx] for k, a in data.items()}
+
+
 def _dispatch(args, cfg, device) -> dict:
     if args.serve is not None:
         return run_serve(args, cfg, device,
@@ -464,23 +509,15 @@ def _dispatch(args, cfg, device) -> dict:
         # the LR problem pads its d_model features to q equal blocks
         return run_tcp(args, cfg, device,
                        ObsMetricLogger(f"train:{args.arch}:vfl-zoo-tcp"))
-    if cfg.d_model % args.parties:
-        raise ValueError(f"--parties must divide d_model={cfg.d_model}")
     t_setup = time.perf_counter()
-    model = build_model(cfg)
     log = ObsMetricLogger(f"train:{args.arch}:{args.mode}")
-    n = max(64, args.batch_size * 8)
-    data = make_batch_arrays(cfg, n, args.seq_len, args.seed, device)
-    dp = make_dp(args)
-    vfl = VFLConfig(num_parties=args.parties, mu=args.mu, lr_party=args.lr,
-                    lr_server=args.lr / args.parties, dp=dp, fused=args.fused,
-                    codec=args.codec)
+    vfl, step, state, data = make_zoo_run(args, cfg, device)
+    n = len(data["tokens"])
+    dp = vfl.dp
     if dp is not None:
         log.log(0, dp_epsilon=args.dp_epsilon,
                 dp_sigma=(dp.noise_multiplier
                           if dp.noise_multiplier is not None else 0.0))
-    _, init, step = step_lib.make_vfl_zoo_step(model, vfl)
-    state = init(prng.key(args.seed), device)
     rng = np.random.default_rng(args.seed)
     start_step = 0
     if args.resume:
@@ -507,10 +544,7 @@ def _dispatch(args, cfg, device) -> dict:
     losses, step_s = [], []
     for s in range(args.steps):
         t0 = time.perf_counter()
-        idx = torch.as_tensor(rng.integers(0, n, args.batch_size),
-                              device=device)
-        batch = {k: a[idx] for k, a in data.items()}
-        state, h = step(state, batch)
+        state, h = step(state, draw_batch(rng, data, args.batch_size))
         losses.append(float(h))
         step_s.append(time.perf_counter() - t0)
         if s % args.log_every == 0 or s == args.steps - 1:

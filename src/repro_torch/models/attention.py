@@ -1,5 +1,6 @@
-"""Attention: GQA/MHA causal self-attention with optional QKV bias and
-RoPE, full or sliding-window, and its decode step against a KV cache,
+"""Attention: GQA/MHA self-attention with optional QKV bias, qk-norm and
+RoPE, causal (full or sliding-window) or bidirectional, the encoder-
+decoder's cross attention, and the decode step against a KV cache,
 mirroring the reference's models/attention.py.
 
 Full-sequence causal attention runs on the flash_attention kernel
@@ -10,7 +11,10 @@ reference's banded q-block scan in plain torch. Decoding attends one new
 token against the cache (``decode_attention``, plain torch, as the
 reference's einsum): the cache holds the model's dtype or int8 with a
 scale per position and kv head, and under a sliding window it is a
-rolling buffer of the window's length.
+rolling buffer of the window's length. Cross attention (whisper's
+decoder over the encoder's K/V, whose length differs from the queries')
+is ``full_attention``, plain torch, as the reference computes it outside
+any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 from repro_torch.utils import prng
 
 NEG_INF = -1e30
@@ -36,10 +40,16 @@ def attn_init(key, cfg: ModelConfig, device, dtype):
     if cfg.qkv_bias:
         for name, n in (("bq", H), ("bk", KV), ("bv", KV)):
             p[name] = torch.zeros((n * hd,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_gamma"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_gamma"] = torch.ones((hd,), dtype=dtype, device=device)
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x, positions):
+def _project_qkv(p, cfg: ModelConfig, x, positions, rope: bool = True):
+    """q (B, S, H, hd), k and v (B, S, KV, hd): the projections (+ bias),
+    qk-norm over hd, then RoPE unless ``rope`` is False (sinusoidal or no
+    positions)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -48,8 +58,13 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_gamma"], cfg.norm_eps)
+        k = rms_norm(k, p["k_gamma"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def _const(value, device) -> torch.Tensor:
@@ -123,13 +138,64 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, causal: bool = True):
     0..S-1 on every row: the kernel and the window mask by position in the
     sequence. A causal sliding window takes ``windowed_attention``, as the
     reference's does; everything else the flash_attention kernel."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, rope=cfg.pos_emb == "rope")
     if cfg.sliding_window is not None and causal:
         o = windowed_attention(q, k, v, cfg.sliding_window)
     else:
         o = ops.flash_attention(q, k, v, causal=causal)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def full_attention(q, k, v):
+    """Bidirectional attention of q (B, Sq, H, hd) over k, v (B, Skv, KV,
+    hd), any Sq and Skv: the reference's ``blocked_attention(causal=False)``
+    in one pass. Scores in f32 (products of the operands' values, sums in
+    f32) times 1/sqrt(hd); p = exp(s - max) cast to v's dtype for the p.v
+    product, summed in f32 and divided by the row's f32 sum of p, then
+    cast to q's dtype. The reference runs the same softmax online over kv
+    blocks; the two differ by the order of the f32 sums (and in bf16 by
+    where p was rounded)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bqkgs", qg.float(), k.float()) \
+        * _const(1.0 / np.sqrt(hd), q.device)
+    pr = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    den = torch.sum(pr, dim=-1, keepdim=True)
+    o = torch.einsum("bqkgs,bskh->bqkgh", pr.to(v.dtype).float(), v.float())
+    o = o / torch.clamp(den, min=1e-30)
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def cross_attn_init(key, cfg: ModelConfig, device, dtype):
+    return attn_init(key, cfg, device, dtype)
+
+
+def cross_attn_apply(p, cfg: ModelConfig, x, enc_kv):
+    """The decoder's cross attention; enc_kv = {"k", "v"} (B, F, KV, hd)
+    from ``encode_kv``. The query has no bias and no RoPE, qk-norm when
+    the config has it."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_gamma"], cfg.norm_eps)
+    o = full_attention(q, enc_kv["k"], enc_kv["v"])
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def encode_kv(p, cfg: ModelConfig, enc_out):
+    """The encoder output (B, F, d) projected once into cross-attention
+    {"k", "v"} (B, F, KV, hd); no bias, qk-norm on k when the config has
+    it (the reference's pair (k, v) as a dict)."""
+    B, F, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = (enc_out @ p["wk"]).reshape(B, F, KV, hd)
+    v = (enc_out @ p["wv"]).reshape(B, F, KV, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_gamma"], cfg.norm_eps)
+    return {"k": k, "v": v}
 
 
 def _quantize_kv(t):
@@ -160,7 +226,8 @@ def attn_decode_step(p, cfg: ModelConfig, x, cache, pos):
     """
     B = x.shape[0]
     pos_b = torch.as_tensor(pos, device=x.device).expand(B)
-    q, k, v = _project_qkv(p, cfg, x, pos_b[:, None])
+    q, k, v = _project_qkv(p, cfg, x, pos_b[:, None],
+                           rope=cfg.pos_emb == "rope")
     Smax = cache["k"].shape[1]
     slot = pos_b % Smax if cfg.sliding_window is not None else pos_b
     bidx = torch.arange(B, device=x.device)

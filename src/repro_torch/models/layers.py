@@ -1,6 +1,7 @@
 """Primitive layers (functional, params as dicts of tensors): the paper
 models' dense layer and cross entropy, and the transformer's RMSNorm,
-RoPE, SwiGLU and embedding, mirroring the reference's models/layers.py.
+RoPE, sinusoidal positions, SwiGLU and embedding, mirroring the
+reference's models/layers.py.
 Inits draw the reference's ``jax.random.normal`` bits exactly."""
 from __future__ import annotations
 
@@ -65,6 +66,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_positions(num_pos: int, dim: int, device) -> torch.Tensor:
+    """(num_pos, dim) table [sin | cos] of pos / 10000^(2i/dim): computed in
+    float64 numpy and cast to f32 once, as the reference computes it (so
+    bitwise the reference's), and copied to ``device`` once (callers must
+    not write into it)."""
+    pos = np.arange(num_pos)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / dim))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(emb.astype(np.float32), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_timescales_on(dim: int, device) -> torch.Tensor:
+    """10000^(2i/dim) as an f32 table on ``device``, copied there once: the
+    exponent rounded to f32 as the reference's is, the power taken in
+    float64 and rounded once (XLA's f32 power gives the same floats at
+    every width the registry uses but an ulp off in one of whisper's
+    384)."""
+    e = (2 * np.arange(dim // 2) / dim).astype(np.float32)
+    inv = np.power(10000.0, e.astype(np.float64)).astype(np.float32)
+    return torch.as_tensor(inv, device=device)
+
+
+def sinusoidal_position_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """The rows of ``sinusoidal_positions`` at the (B,) positions ``pos``,
+    computed in f32 on pos's device as the reference's decode computes
+    them: pos / 10000^(2i/dim), then f32 sin and cos. torch's and XLA's
+    f32 sin/cos may differ in the last ulp, and both differ from the f64
+    table by such ulps."""
+    ang = pos.float()[:, None] / _inv_timescales_on(dim, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def swiglu_init(key, d_model: int, d_ff: int, device, dtype):

@@ -1,6 +1,7 @@
-"""Layer blocks and the stack over layers for the dense, ssm (rwkv6) and
-hybrid (hymba) families, full-sequence and one token at a time,
-mirroring the reference's models/transformer.py. Per-layer params and
+"""Layer blocks and the stack over layers for every family (dense, moe,
+ssm (rwkv6), hybrid (hymba), vlm (chameleon), audio (whisper's encoder
+and its decoder with cross attention)), full-sequence and one token at a
+time, mirroring the reference's models/transformer.py. Per-layer params and
 per-layer decode caches are stacked on a leading L axis as in the
 reference's scans; ``stack_forward`` and ``stack_decode`` are Python loops
 over that axis. Remat and sharding constraints have no counterpart:
@@ -13,20 +14,28 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as rwkv
 from repro_torch.models.layers import rms_norm, swiglu_apply, swiglu_init
 from repro_torch.utils import prng, trees
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def layer_init(key, cfg: ModelConfig, device, dtype):
     ks = prng.split(key, 4)
     p = {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
          "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         p["attn"] = attn.attn_init(ks[0], cfg, device, dtype)
         p["mlp"] = swiglu_init(ks[1], cfg.d_model, cfg.d_ff, device, dtype)
+        if cfg.enc_dec:
+            p["cross"] = attn.cross_attn_init(ks[2], cfg, device, dtype)
+            p["norm3"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device)
+    elif cfg.family == "moe":
+        p["attn"] = attn.attn_init(ks[0], cfg, device, dtype)
+        p["moe"] = moe_mod.moe_init(ks[1], cfg, device, dtype)
     elif cfg.family == "ssm":
         p["tmix"] = rwkv.rwkv_time_mix_init(ks[0], cfg, device, dtype)
         p["cmix"] = rwkv.rwkv_channel_mix_init(ks[1], cfg, device, dtype)
@@ -42,10 +51,20 @@ def layer_init(key, cfg: ModelConfig, device, dtype):
 def stacked_layers_init(key, cfg: ModelConfig, device, dtype,
                         n_layers: int):
     """The reference vmaps ``layer_init`` over split keys; under threefry
-    that equals one call per key, stacked."""
-    per = [layer_init(k, cfg, device, dtype)
-           for k in prng.split(key, n_layers)]
-    return trees.tree_map(lambda *xs: torch.stack(xs), *per)
+    that equals one call per key, stacked. Each stacked leaf is allocated
+    once and each layer's leaves are written into its slice, then freed:
+    the model is held once, plus one layer (stacking a list of every
+    layer's leaves would hold it twice)."""
+    stacked = None
+    for i, k in enumerate(prng.split(key, n_layers)):
+        one = layer_init(k, cfg, device, dtype)
+        if stacked is None:
+            stacked = trees.tree_map(
+                lambda t: torch.empty((n_layers,) + tuple(t.shape),
+                                      dtype=t.dtype, device=t.device), one)
+        trees.tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
+        del one
+    return stacked
 
 
 def _mix(x, a, m):
@@ -53,9 +72,11 @@ def _mix(x, a, m):
     return x + (0.5 * (a.float() + m.float())).to(x.dtype)
 
 
-def block_forward(p, cfg: ModelConfig, x, positions, causal: bool = True):
-    """One layer, full sequence. Returns (x, aux_loss); aux is 0 for
-    these families."""
+def block_forward(p, cfg: ModelConfig, x, positions, enc_out=None,
+                  causal: bool = True):
+    """One layer, full sequence. Returns (x, aux_loss): the router's aux
+    loss for moe, 0 otherwise. ``enc_out`` (B, F, d), when given, feeds
+    the decoder layer's cross attention."""
     if cfg.family == "ssm":
         h, _ = rwkv.rwkv_time_mix_apply(p["tmix"], cfg,
                                         rms_norm(x, p["norm1"], cfg.norm_eps))
@@ -70,7 +91,14 @@ def block_forward(p, cfg: ModelConfig, x, positions, causal: bool = True):
         x = _mix(x, a, m)
     else:
         x = x + a.to(x.dtype)
+    if cfg.enc_dec and enc_out is not None and "cross" in p:
+        xn = rms_norm(x, p["norm3"], cfg.norm_eps)
+        kv = attn.encode_kv(p["cross"], cfg, enc_out)
+        x = x + attn.cross_attn_apply(p["cross"], cfg, xn, kv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        h, aux = moe_mod.moe_apply(p["moe"], cfg, xn)
+        return x + h.to(x.dtype), aux
     return x + swiglu_apply(p["mlp"], xn).to(x.dtype), 0.0
 
 
@@ -78,13 +106,13 @@ def _layer(stacked, layer: int):
     return trees.tree_map(lambda t: t[layer], stacked)
 
 
-def stack_forward(stacked, cfg: ModelConfig, x, positions,
+def stack_forward(stacked, cfg: ModelConfig, x, positions, enc_out=None,
                   causal: bool = True):
     """Every layer in order. Returns (x, total_aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(trees.leaves(stacked)[0].shape[0]):
         x, a = block_forward(_layer(stacked, layer), cfg, x, positions,
-                             causal=causal)
+                             enc_out=enc_out, causal=causal)
         aux = aux + a
     return x, aux
 
@@ -111,10 +139,11 @@ def stacked_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                               device=device), one)
 
 
-def block_decode(p, cfg: ModelConfig, x, cache, pos):
+def block_decode(p, cfg: ModelConfig, x, cache, pos, cross_kv=None):
     """One layer, one token. Returns (x, new_cache); the KV cache is
     written in place (``attn.attn_decode_step``), the recurrent states are
-    new tensors."""
+    new tensors. ``cross_kv`` is this layer's encoder {"k", "v"}; the moe
+    branch discards the router's aux loss."""
     if cfg.family == "ssm":
         h, st = rwkv.rwkv_time_mix_decode(
             p["tmix"], cfg, rms_norm(x, p["norm1"], cfg.norm_eps),
@@ -136,24 +165,34 @@ def block_decode(p, cfg: ModelConfig, x, cache, pos):
         x = _mix(x, a, m)
     else:
         x = x + a.to(x.dtype)
+    if cfg.enc_dec and cross_kv is not None and "cross" in p:
+        xn = rms_norm(x, p["norm3"], cfg.norm_eps)
+        x = x + attn.cross_attn_apply(p["cross"], cfg, xn, cross_kv)
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + swiglu_apply(p["mlp"], xn).to(x.dtype), new_cache
+    if cfg.family == "moe":
+        h, _ = moe_mod.moe_apply(p["moe"], cfg, xn)
+    else:
+        h = swiglu_apply(p["mlp"], xn)
+    return x + h.to(x.dtype), new_cache
 
 
-def stack_decode(stacked, cfg: ModelConfig, x, caches, pos):
+def stack_decode(stacked, cfg: ModelConfig, x, caches, pos, cross_kv=None):
     """Every layer in order, one token, against the stacked ``caches``.
 
     Each layer decodes against its slice of the stacked caches, and what
     it returns is written back into that slice IN PLACE; ``caches`` itself
     is returned (the reference's scan threads new caches through as its
     outputs, which XLA updates in place under jit). Clone the caches to
-    keep the state from before the step.
+    keep the state from before the step. ``cross_kv``, when given, is
+    the per-layer encoder {"k", "v"} stacked on the layer axis.
     """
     def write_back(dst, src):
         if src is not dst:
             dst.copy_(src)
     for layer in range(trees.leaves(stacked)[0].shape[0]):
         cache_l = _layer(caches, layer)
-        x, new_l = block_decode(_layer(stacked, layer), cfg, x, cache_l, pos)
+        ckv = None if cross_kv is None else _layer(cross_kv, layer)
+        x, new_l = block_decode(_layer(stacked, layer), cfg, x, cache_l, pos,
+                                cross_kv=ckv)
         trees.tree_map(write_back, cache_l, new_l)
     return x, caches

@@ -75,10 +75,28 @@ class Request:
 
 class ServingEngine:
     """``params`` live on the engine's device, which ``device=None``
-    resolves to the card (and raises without one)."""
+    resolves to the card (and raises without one). An encoder-decoder
+    model takes ``frames`` (slots, F, d), one row a slot, encoded once
+    into the cache's cross K/V; the extra rows of the padded decode get
+    zero frames.
+
+    As the reference's engine does, admitting a request zeroes its slot
+    in every cache leaf with a slot axis, the cross K/V included: a slot
+    of an encoder-decoder model attends to zeros from its first step on
+    (a reference defect the port keeps, ROADMAP Queue 3).
+
+    The decode runs ``rows`` (slots rounded up to a multiple of 8), where
+    the reference's engine runs ``slots``. A MoE layer's expert capacity
+    counts the rows (``models.moe.capacity``), so at a slot count that is
+    not a multiple of 8 the moe family's outputs differ from the
+    reference engine's wherever the two capacities differ: the reduced
+    configs (E 4, K 2) at slots 3 or 6 have C 5 here and 4 there; the
+    full configs have C 4 on both sides up to 24 slots
+    (phi3.5-moe) and 48 (qwen3-moe)."""
 
     def __init__(self, model, params, *, slots: int = 4, max_len: int = 256,
-                 greedy: bool = True, seed: int = 0, device=None):
+                 frames=None, greedy: bool = True, seed: int = 0,
+                 device=None):
         self.device = resolve_device(device)
         self.model = model
         self.params = params
@@ -87,7 +105,13 @@ class ServingEngine:
         self.greedy = greedy
         self.key = prng.key(seed)
         self.rows = -(-slots // ROW_BLOCK) * ROW_BLOCK  # decode batch
-        self.cache = model.init_cache(params, self.rows, max_len)
+        if frames is not None:
+            frames = frames.to(self.device)
+            pad = frames.new_zeros((self.rows - frames.shape[0],)
+                                   + tuple(frames.shape[1:]))
+            frames = torch.cat([frames, pad])
+        self.cache = model.init_cache(params, self.rows, max_len,
+                                      frames=frames)
         self.queue: deque[Request] = deque()
         self.active: list[Optional[Request]] = [None] * self.rows
         self._cursor = np.zeros(self.rows, np.int64)  # next prompt index

@@ -3,8 +3,10 @@ defended_encode (from keys and from bits), the draw kernel and zo_update
 bitwise, dual_matmul and flash_attention
 within a stated tolerance (their sums run in another order than the
 plain versions') and bitwise where only their own order is involved, and
-a reduced vfl-zoo step on the card against the same step on the CPU, and
-LM serving (decode, sampling, the engine) on the card against the CPU.
+a reduced vfl-zoo step on the card against the same step on the CPU,
+LM serving (decode, sampling, the engine) on the card against the CPU,
+and the MoE dispatch (deterministic, ties to the lower expert) and the
+moe, vlm and audio families' decode on the card against the CPU.
 No jax here: the machine with the card has none. Without a CUDA
 device every test skips (the kernels have no CPU mode); run them there
 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
@@ -648,3 +650,88 @@ def test_engine_on_the_card_gives_the_cpus_tokens(cuda):
     for greedy in (True, False):
         assert run(cuda, greedy) == run("cpu", greedy)
     assert run(cuda, False) == run(cuda, False, slots=3)
+
+
+# ---------------------------------------------- the moe, vlm and audio --
+
+NEW_FAMILIES = ["qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "chameleon-34b",
+                "whisper-small"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_on_the_card_is_deterministic(cuda, dtype):
+    """qwen3-moe's routing (128 experts, top 8) at d 256 over 4096 tokens,
+    experts 1 and 2 with the same router column: two calls bitwise equal
+    (the scatter and the gather use no atomics), every tie to the lower
+    expert, the routes the CPU's wherever the top 9 probabilities are
+    apart (or exactly tied), the output within 1e-5 (f32) or 2e-2 (bf16)
+    of the CPU's over its largest entry."""
+    from repro_torch.configs import MoEConfig, get_config
+    from repro_torch.models import moe
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True).replace(
+        d_model=256, moe=MoEConfig(128, 8, 64),
+        dtype="float32" if dtype == torch.float32 else "bfloat16")
+    p = moe.moe_init(prng.key(3), cfg, "cpu", dtype)
+    p["router"][:, 2] = p["router"][:, 1]
+    x = torch.randn(4, 1024, 256, generator=torch.Generator().manual_seed(
+        4)).to(dtype)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    a, aux_a = moe.moe_apply(pc, cfg, x.to(cuda))
+    b, aux_b = moe.moe_apply(pc, cfg, x.to(cuda))
+    assert _same_bits(a, b) and _same_bits(aux_a, aux_b)
+    probs, _, idx = moe.route(pc, cfg, x.to(cuda).reshape(-1, 256))
+    probs, idx = probs.cpu(), idx.cpu()
+    assert torch.equal(probs[:, 1], probs[:, 2])
+    rows = [r.tolist() for r in idx]
+    assert not any(2 in r and 1 not in r for r in rows)
+    assert all(r.index(1) < r.index(2) for r in rows if 2 in r)
+    _, _, want_idx = moe.route(p, cfg, x.reshape(-1, 256))
+    top = torch.sort(probs, dim=-1, descending=True).values[:, :9]
+    gap = top[:, :-1] - top[:, 1:]
+    decided = ((gap > 1e-6 * top[:, :1]) | (gap == 0)).all(dim=1)
+    assert float(decided.float().mean()) >= 0.9
+    assert torch.equal(idx[decided], want_idx[decided])
+    want, want_aux = moe.moe_apply(p, cfg, x)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((a.cpu().float() - want.float()).abs().max()) <= \
+        tol * float(want.float().abs().max())
+    assert abs(float(aux_a) - float(want_aux)) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_families_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """Each new architecture reduced (f32): the forward (the f32
+    flash_attention kernel, one launch a layer, whisper's encoder's too)
+    and 10 decode steps from ``init_cache`` (whisper's frames encoded into
+    the cross K/V) within 1e-4 of the CPU port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (2, 10))
+    frames = rng.normal(size=(2, cfg.encoder_frames, cfg.d_model)).astype(
+        np.float32)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        params = model.init(prng.key(1), device)
+        t = torch.as_tensor(toks, device=device)
+        batch = {"tokens": t, "targets": t}
+        if cfg.enc_dec:
+            batch["frames"] = torch.as_tensor(frames, device=device)
+        if cfg.frontend == "vq_stub":
+            batch["modality_mask"] = (t % 3 == 0).long()
+        n0 = flash_attention.flash_attention.launches
+        full, _ = model.forward(params, batch)
+        if device.type == "cuda":
+            assert flash_attention.flash_attention.launches - n0 == \
+                cfg.num_layers + cfg.num_encoder_layers
+        cache = model.init_cache(params, 2, 16, frames=batch.get("frames"))
+        rows = []
+        for pos in range(10):
+            lg, cache = model.decode_step(params, cache, t[:, pos:pos + 1],
+                                          pos)
+            rows.append(lg)
+        out[device.type] = (full.cpu(), torch.cat(rows, dim=1).cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4

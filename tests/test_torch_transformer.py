@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as ref_arch_ids
 from repro.configs import VFLConfig as RefVFLConfig
 from repro.configs import get_config as ref_get_config
 from repro.core import asyrevel as ref_asy
@@ -62,30 +63,52 @@ def _assert_tree_bitwise(ref_tree, got):
 # ------------------------------------------------------------ configs ----
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-34b", "deepseek-7b",
-                                  "minicpm-2b"])
+                                  "minicpm-2b", "qwen3-moe-30b-a3b",
+                                  "phi3.5-moe-42b-a6.6b", "chameleon-34b",
+                                  "whisper-small"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_dense_configs_equal_the_reference(arch, reduced):
+    """Every field of the port's ModelConfig (the moe config field by
+    field), for the dense, moe, vlm and audio architectures."""
     want = ref_get_config(arch, reduced=reduced)
     got = get_config(arch, reduced=reduced)
     for f in dataclasses.fields(ModelConfig):
-        assert getattr(got, f.name) == getattr(want, f.name), f.name
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "moe" and b is not None:
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            assert [g.name for g in dataclasses.fields(a)] == \
+                [g.name for g in dataclasses.fields(b)]
+        else:
+            assert a == b, f.name
     assert got.resolved_head_dim == want.resolved_head_dim
 
 
-def test_other_families_are_refused():
-    """The moe, vlm and audio architectures raise; rwkv6 and hymba build."""
-    for name in ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "chameleon-34b",
-                 "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            get_config(name)
+@pytest.mark.parametrize("arch", ref_arch_ids)
+def test_every_reference_arch_builds_and_runs(arch):
+    """Every architecture of the reference's registry: its full config, its
+    reduced model's init, and one forward (finite logits of the vocab's
+    width; the batch carries the family's stub inputs)."""
+    assert get_config(arch).name == arch
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(prng.key(0), "cpu")
+    assert params["layers"]
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    batch = {"tokens": toks, "targets": toks}
+    if cfg.enc_dec:
+        batch["frames"] = torch.zeros((1, cfg.encoder_frames, cfg.d_model))
+    if cfg.frontend == "vq_stub":
+        batch["modality_mask"] = toks
+    logits, _ = model.forward(params, batch)
+    assert logits.shape == (1, 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_unknown_arch_and_family_raise():
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    for name, family in (("rwkv6-1.6b", "ssm"), ("hymba-1.5b", "hybrid")):
-        cfg = get_config(name, reduced=True)
-        assert cfg.family == family
-        assert build_model(cfg).init(prng.key(0), "cpu")["layers"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(get_config("qwen1.5-0.5b").replace(family="moe"))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(get_config("qwen1.5-0.5b").replace(family="no-such"))
 
 
 # -------------------------------------------------------------- draws ----
