@@ -7,7 +7,7 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device and build: the card's name, power limit and top SM clock, TF32
-   off, and the five CUDA kernels built from src/repro_torch/kernels/csrc/
+   off, and the six CUDA kernels built from src/repro_torch/kernels/csrc/
    (one nvcc per source, in parallel) into build/kernels/; ptxas's
    register and spill lines, and the integer instructions of the draw
    kernel's SASS.
@@ -56,7 +56,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    PyTorch's scaled_dot_product_attention, which the port never calls; at
    the vfl-zoo shapes and yi-34b's the rows also carry both device times
    (profiler-traced), and the f32 kernel must take less than SDPA at the
-   vfl-zoo shape.
+   vfl-zoo shape. Its backward kernel (``flash_bwd_phase``) against
+   ``flash_attention_bwd_plain`` from the same forward output and lse
+   (1e-4 relative in f32, 2e-2 in bf16), two calls bitwise, at the
+   vfl-zoo shape in bf16, qwen3-moe's GQA, whisper's encoder, the reduced
+   f32 shape and explicit q and kv positions with rows that see no key
+   (the mean of v); the forward with lse bitwise the forward-only launch,
+   its lse the plain row logsumexp within 1e-5; one call and traced
+   times, the bound (5 products, at the bf16 tensor cores' or the f32
+   CUDA cores' rate) and the backward of scaled_dot_product_attention
+   through autograd as its yardstick.
 3. Main path: the defended AsyREVEL party round (Algorithm 1,
    ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
    x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
@@ -216,6 +225,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    from the card's state, h within 1e-3. (d) The MoE layer at
    qwen3-moe's vfl-zoo width, two router columns equal: two calls bitwise
    equal, ties to the lower expert.
+14. First-order LM training (``lm_train_phase``), bf16, random weights
+   from seed 0: (a) ``launch/train.py``'s ``main`` with ``--mode lm`` at
+   qwen1.5-0.5b's full width and depth (24 layers, d 1024, vocab 151 936,
+   464M parameters, remat on as the config has it), batch 4, S 2048, 5
+   Adam steps: every loss finite, the first within 1.0 of ln V; s per
+   step and the peak; launches exact (``lm_train_launches``: a forward
+   flash_attention a layer and another that remat recomputes, a backward
+   a layer, each step; the initial weights' draws). (b) One step of the
+   same model and batch shape with ``chunked_ce``: its loss and peak
+   beside (a)'s. (c) Every architecture reduced (f32) from one state on
+   the card and on the CPU: initial weights bitwise, at the first step
+   every gradient leaf within 1e-4 of its largest, then 3 Adam steps each
+   run on both from the card's state, losses within 1e-4; and
+   qwen1.5-0.5b with explicit positions, a loss mask and the chunked
+   loss.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
@@ -225,8 +249,10 @@ vfl-zoo cell, 128 predictions of the serving cell in memory at slots
 8 (after 64 of warm-up), and 32 engine steps of the LM-serving cell
 (phase 12 (a)'s greedy engine, after 8 of warm-up), and phase 13's
 cells: one vfl-zoo step of qwen3-moe (2 layers) and of whisper-small,
-and 8 decode steps of each full model of (a), with ``torch.profiler``,
-printing the device-busy share, the kernels by device time, the
+and 8 decode steps of each full model of (a), and one training step of
+phase 14 (a)'s model ("lm_train", after a warm-up step; the backward
+kernel's two grids count as two launches a call), with
+``torch.profiler``, printing the device-busy share, the kernels by device time, the
 flash_attention kernels' device time and launches, and what the draws
 cost in that trace: each ``prng.bits`` and ``prng.sample_direction``
 call is a ``record_function`` span, counted, with its host time and the
@@ -1130,6 +1156,7 @@ def zero_launches():
     from repro_torch.kernels import ops
     for fn in ops.launch_counters().values():
         fn.launches = 0
+    ops.flash_attention_bwd.launches = 0
 
 
 def read_launches() -> dict:
@@ -3138,6 +3165,313 @@ def families_reduced_checks(dev):
         out[arch] = res
     return out
 
+# ----------------------------------------- phase 14: first-order LM training --
+
+LM_TRAIN_STEPS = 5
+LM_TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--mode", "lm", "--batch-size",
+                 "4", "--log-every", "1"]
+LM_TRAIN_TOL = 1e-4
+# (c)'s reduced runs: batch 2, S 32, 3 Adam steps each from one state
+LM_TRAIN_CHECK = (2, 32, 3)
+
+
+def lm_train_launches(cfg, steps):
+    """flash_attention launches of ``steps`` first-order steps: a forward a
+    layer (and an encoder layer), another where remat recomputes the layer
+    in the backward, and a backward a layer. Returns (forward, backward)."""
+    layers = cfg.num_layers + (cfg.num_encoder_layers if cfg.enc_dec else 0)
+    return layers * (2 if cfg.remat else 1) * steps, layers * steps
+
+
+def lm_train_phase(dev, reduced=False):
+    """First-order LM training (module docstring, phase 14): (a) the
+    launcher's ``--mode lm`` at qwen1.5-0.5b's full width and depth, (b) the
+    same model with the vocab-chunked loss, (c) every architecture reduced,
+    card against CPU. ``reduced`` runs (a) and (b) on the reduced config
+    (a rehearsal on the CPU). Returns (the backward's launches in (a), the
+    phase's numbers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+
+    seq_len = 64 if reduced else 2048
+    argv = LM_TRAIN_ARGS + ["--steps", str(LM_TRAIN_STEPS), "--seq-len",
+                            str(seq_len)] + (["--reduced"] if reduced else [])
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    cfg = get_config("qwen1.5-0.5b", reduced=reduced)
+    torch.cuda.empty_cache()
+    zero_launches()
+    res = train.main(argv)
+    launches = read_launches()
+    bwd = fa.flash_attention_bwd.launches
+    fwd_want, bwd_want = lm_train_launches(cfg, LM_TRAIN_STEPS)
+    want = {"defended_encode": 0, "zo_update": 0, "dual_matmul": 0,
+            "flash_attention": fwd_want, "prng_draw": lm_init_draws(cfg)}
+    loss = res["loss"]
+    peak_gb = res["peak_bytes"] / 1e9
+    log(f"[lm_train] qwen1.5-0.5b {cfg.num_params()} params, "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, remat {cfg.remat}: "
+        f"setup {res['setup_s']:.2f} s, s per step "
+        f"{[round(t, 4) for t in res['step_s']]}, loss {loss}, lr "
+        f"{res['lr']}, peak {peak_gb:.2f} GB, launches {launches}, "
+        f"flash_attention_bwd {bwd}")
+    if launches != want or bwd != bwd_want:
+        raise AssertionError(f"lm launches {launches} and {bwd} backward, "
+                             f"want {want} and {bwd_want}")
+    if len(loss) != LM_TRAIN_STEPS or not all(map(math.isfinite, loss)):
+        raise AssertionError(f"lm losses {loss}")
+    if not abs(loss[0] - math.log(cfg.vocab_size)) < 1.0:
+        raise AssertionError(f"first loss {loss[0]} is not within 1.0 of "
+                             f"ln V = {math.log(cfg.vocab_size):.4f}")
+    chunked = lm_chunked_peak(dev, cfg, res["state"].params, seq_len)
+    del res["state"]
+    torch.cuda.empty_cache()
+    checks = lm_train_checks(dev)
+    return bwd, {"steps": LM_TRAIN_STEPS, "loss": loss,
+                 "step_s": res["step_s"], "steps_per_s": res["steps_per_s"],
+                 "setup_s": res["setup_s"], "peak_gb": peak_gb,
+                 "launches": {**launches, "flash_attention_bwd": bwd},
+                 "chunked": chunked, "reduced_card_vs_cpu": checks}
+
+
+def lm_chunked_peak(dev, cfg, params, seq_len):
+    """(b): one training step of (a)'s model and batch shape (4 x
+    ``seq_len``) with ``chunked_ce``, from (a)'s final weights: its loss
+    (finite) and the peak device memory of the step, beside (a)'s."""
+    import torch
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import make_batch_arrays
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import adam_init
+
+    model = build_model(cfg.replace(chunked_ce=True))
+    batch = make_batch_arrays(cfg, 4, seq_len, 1, dev)
+    state = step_lib.TrainState(params, adam_init(params), 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, (loss, _) = step_lib.make_train_step(model)(state, batch)
+    loss = float(loss)
+    step_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else 0.0)
+    if not math.isfinite(loss):
+        raise AssertionError(f"chunked-loss step: loss {loss}")
+    log(f"[lm_train] chunked_ce: one step {step_s:.3f} s, loss {loss}, "
+        f"peak {peak_gb:.2f} GB")
+    return {"loss": loss, "step_s": step_s, "peak_gb": peak_gb}
+
+
+def lm_train_checks(dev):
+    """(c): each architecture reduced (f32) from one state on the card and
+    on the CPU: initial weights bitwise; 3 Adam steps, each run on both
+    from the card's state and batch: the loss within LM_TRAIN_TOL, and at
+    the first step every gradient leaf within LM_TRAIN_TOL of its largest
+    magnitude on the CPU; then qwen1.5-0.5b with explicit positions (out
+    of order, repeats), a loss mask and the chunked loss. Returns
+    {arch: the largest loss gap and relative gradient gap}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import make_batch_arrays
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng, trees
+
+    B, S, steps = LM_TRAIN_CHECK
+    cpu = torch.device("cpu")
+    out = {}
+    runs = [(arch, {}) for arch in ARCH_IDS] + [
+        ("qwen1.5-0.5b+positions+mask+chunked", {"chunked_ce": True})]
+    for name, replace in runs:
+        arch = name.split("+")[0]
+        cfg = get_config(arch, reduced=True).replace(**replace)
+        model = build_model(cfg)
+        states = {d: step_lib.make_train_state(model, prng.key(0), d)
+                  for d in (dev, cpu)}
+        if not all(bitwise_equal(a.cpu(), b) for a, b in zip(
+                trees.leaves(states[dev].params),
+                trees.leaves(states[cpu].params))):
+            raise AssertionError(f"{name}: initial weights differ")
+        data = make_batch_arrays(cfg, B * steps, S, 0, cpu)
+        if replace:
+            rng = np.random.default_rng(3)
+            data["positions"] = torch.as_tensor(
+                rng.integers(0, S + 8, (B * steps, S)))
+            data["loss_mask"] = torch.as_tensor(
+                (rng.random((B * steps, S)) < 0.6).astype(np.int32))
+        step = step_lib.make_train_step(model)
+        state = states[dev]
+        gaps, grad_gap = [], 0.0
+        for s in range(steps):
+            batch = {k: a[s * B:(s + 1) * B] for k, a in data.items()}
+            on_cpu = trees.tree_map(lambda a: a.cpu(),
+                                    {"p": state.params, "o": state.opt})
+            if s == 0:
+                grad_gap = lm_grad_gap(model, state.params, on_cpu["p"],
+                                       batch, dev)
+            _, (l_cpu, _) = step(step_lib.TrainState(
+                on_cpu["p"], on_cpu["o"], state.step), batch)
+            state, (l_dev, _) = step(
+                state, {k: a.to(dev) for k, a in batch.items()})
+            gaps.append(abs(float(l_dev) - float(l_cpu)))
+        if not (max(gaps) <= LM_TRAIN_TOL and grad_gap <= LM_TRAIN_TOL):
+            raise AssertionError(f"{name}: card vs CPU loss gaps {gaps}, "
+                                 f"gradient gap {grad_gap}")
+        out[name] = {"loss_gaps": gaps, "grad_rel_gap": grad_gap}
+    log(f"[lm_train] reduced, card vs CPU, {steps} Adam steps each from "
+        f"one state: {json.dumps(out)}")
+    return out
+
+
+def lm_grad_gap(model, params_dev, params_cpu, batch, dev):
+    """The largest |card - CPU| of a gradient leaf over that leaf's largest
+    magnitude on the CPU, for one loss at the same weights and batch."""
+    import torch
+    from repro_torch.utils import trees
+
+    grads = []
+    for params, d in ((params_dev, dev), (params_cpu, torch.device("cpu"))):
+        live = [t.detach().requires_grad_(True)
+                for t in trees.leaves(params)]
+        loss, _ = model.loss(trees.unflatten(params, live),
+                             {k: a.to(d) for k, a in batch.items()})
+        grads.append(torch.autograd.grad(loss, live))
+    return max(float((a.cpu() - b).abs().max())
+               / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(*grads))
+
+
+# the backward kernel's rows (B, S, H, KV, hd, dtype, causal, blind): the
+# vfl-zoo and lm shape in bf16 (qwen1.5-0.5b, batch 4, S 2048), qwen3-moe's
+# GQA 32/4 at hd 128, whisper's encoder (full, S 1500), the reduced f32
+# shape (2 layers of d 256: 4 heads of 64, batch 2, S 32), and explicit q
+# and kv positions with rows that see no key
+FLASH_BWD_CASES = [(4, 2048, 16, 16, 64, "bf16", True, False),
+                   (4, 2048, 32, 4, 128, "bf16", True, False),
+                   (4, 1500, 12, 12, 64, "bf16", False, False),
+                   (2, 32, 4, 4, 64, "f32", True, False),
+                   (2, 1000, 8, 4, 64, "f32", True, True),
+                   (2, 1000, 8, 4, 128, "bf16", True, True)]
+# max |kernel - plain| over the plain gradient's largest magnitude
+FLASH_BWD_TOL = {"f32": 1e-4, "bf16": 2e-2}
+
+
+def flash_bwd_bound(B, S, H, KV, hd, esize, causal):
+    """(bytes time, operations time, f32 tensor-core time or None) of one
+    backward: q, k, v, o, dO and lse read once, dq, dk, dv written once;
+    5 products (q.k, dO.v, p^T dO, ds k, ds^T q) over the pairs the mask
+    keeps, twice the forward's 2; bf16 at the tensor cores' rate, f32 at
+    the CUDA cores' (and 3xTF32 on the tensor cores beside it)."""
+    nbytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * esize \
+        + 4 * B * H * S
+    pairs = S * (S + 1) // 2 if causal else S * S
+    n_ops = 5 * 2 * B * H * hd * pairs
+    rate = BF16_TC_FLOPS_PER_S if esize == 2 else F32_FLOPS_PER_S
+    t_tc = None if esize == 2 else 3 * n_ops / TF32_TC_FLOPS_PER_S
+    return nbytes / HBM_BYTES_PER_S, n_ops / rate, t_tc
+
+
+def flash_bwd_phase(dev):
+    """The backward kernel against flash_attention_bwd_plain from the same
+    forward output and lse (FLASH_BWD_TOL), two calls bitwise; the
+    forward with lse gives the forward-only launch's output bitwise; with
+    positions, rows that see no key have the plain version's lse below
+    MASKED_LSE and the mean of v. Times: one call, traced, the plain
+    version, and the backward of scaled_dot_product_attention through
+    autograd (the yardstick; positions have no SDPA counterpart)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst, timed = 0.0, None
+    for B, S, H, KV, hd, dt, causal, blind in FLASH_BWD_CASES:
+        q, do = (torch.randn(B, S, H, hd, device=dev, generator=gen)
+                 .to(dtypes[dt]) for _ in range(2))
+        k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen)
+                .to(dtypes[dt]) for _ in range(2))
+        qp = kp = None
+        if blind:
+            qp = torch.randint(0, S, (B, S), device=dev, generator=gen)
+            kp = torch.randint(5, S, (B, S), device=dev, generator=gen)
+            qp[0, :3] = 2
+        out, lse = fa._launch_fwd(q, k, v, causal, qp, True, kp)
+        where = f"{(B, S, H, KV, hd)} {dt} causal={causal} blind={blind}"
+        if not blind and not bitwise_equal(
+                out, fa.flash_attention(q, k, v, causal)):
+            raise AssertionError(f"the forward with lse is not the "
+                                 f"forward-only launch at {where}")
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, causal, qp,
+                                                      True, kp)
+        seen = want_lse > fa.MASKED_LSE
+        if not (bool(((lse > fa.MASKED_LSE) == seen).all())
+                and float((lse - want_lse)[seen].abs().max())
+                <= 1e-5 * float(want_lse[seen].abs().max())):
+            raise AssertionError(f"flash_attention lse != plain at {where}")
+        if blind:
+            mean = v[0].float().mean(0).repeat_interleave(H // KV, 0)
+            if not float((out[0, 0].float() - mean).abs().max()) <= \
+                    FLASH_BWD_TOL[dt] * float(mean.abs().max()):
+                raise AssertionError(f"a row that sees no key is not the "
+                                     f"mean of v at {where}")
+
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, out, do, lse, causal, qp,
+                                          kp)
+
+        got, again = kernel(), kernel()
+        want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, causal, qp,
+                                            kp)
+        torch.cuda.synchronize()
+        if not all(bitwise_equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd: two calls differ at "
+                                 f"{where}")
+        errs = [max_abs(a, w) for a, w in zip(got, want)]
+        rels = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
+        if not max(rels) <= FLASH_BWD_TOL[dt]:
+            raise AssertionError(f"flash_attention_bwd != plain at {where}: "
+                                 f"relative errors {rels}")
+        worst = max(worst, max(errs))
+        kern = time_ms(kernel)
+        plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, do, lse, causal, qp, kp))
+        lib = traced_lib = None
+        if not blind:
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=KV != H)
+            do_t = do.transpose(1, 2)
+
+            def library():
+                return torch.autograd.grad(sdpa, leaves, do_t,
+                                           retain_graph=True)
+            lib, traced_lib = time_ms(library), traced_ms(library)
+        t_bytes, t_ops, t_tc = flash_bwd_bound(B, S, H, KV, hd,
+                                               q.element_size(), causal)
+        row = {"kernel": "flash_attention_bwd", "shape": [B, S, H, KV, hd],
+               "dtype": dt, "causal": causal, "positions": blind,
+               "max_abs_err": max(errs), "rel_errs": rels,
+               "tol": FLASH_BWD_TOL[dt], "kernel_ms": kern,
+               "kernel_traced_ms": traced_ms(kernel), "plain_ms": plain,
+               "library_ms": lib, "library_traced_ms": traced_lib,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if t_tc is not None:
+            row["tensor_core_bound_ms"] = max(t_bytes, t_tc) * 1e3
+        log(json.dumps(row))
+        if (B, S, H, KV, hd, dt) == (4, 2048, 16, 16, 64, "bf16"):
+            timed = row
+        del q, k, v, do, out, lse, got, again, want
+        torch.cuda.empty_cache()
+    return timed, worst
+
+
 # ------------------------------------------------------------ vfl-zoo phase --
 
 ZOO_STEPS = 5
@@ -3350,7 +3684,10 @@ PROFILE_SPANS = ("prng.bits", "prng.sample_direction")
 PORT_KERNEL_FUNCTIONS = {"defended_encode": ("cast_kernel", "int8_kernel"),
                          "zo_update": ("zo_update",),
                          "dual_matmul": ("dual_matmul",),
-                         "flash_attention": ("flash_attention",),
+                         "flash_attention": ("flash_attention_f32_kernel",
+                                             "flash_attention_bf16_kernel"),
+                         "flash_attention_bwd": ("bwd_dkdv_kernel",
+                                                 "bwd_dq_kernel"),
                          "prng_draw": ("draw_kernel",)}
 
 
@@ -3494,6 +3831,25 @@ def _lm_workload(dev):
     return run, 32, "engine_step"
 
 
+def _lm_train_workload(dev):
+    """One first-order training step of phase 14 (a)'s configuration
+    (qwen1.5-0.5b at full width and depth, remat, batch 4, S 2048), after
+    a warm-up step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    state = steps.make_train_state(model, prng.key(0), dev)
+    batch = train.make_batch_arrays(cfg, 4, 2048, 0, dev)
+    step = steps.make_train_step(model)
+    state, (loss, _) = step(state, batch)
+    float(loss)
+    return (lambda: float(step(state, batch)[1][0])), 1, "step"
+
+
 def _families_zoo_workload(dev, arch, layers, seq_len):
     """One vfl-zoo step of phase 13 (b)'s run of ``arch``
     (``family_zoo_run``), after a warm-up step."""
@@ -3552,7 +3908,8 @@ def profile_phase(dev, cell):
     """Trace one cell's workload with ``torch.profiler``: 2 serial rounds of
     a D7 FCN cell ("d7", "async"), 4 scan-trainer steps ("scan"), one
     vfl-zoo step ("zoo"), 128 served predictions ("serve"), 32 LM
-    engine steps ("lm") or a cell of phase 13 (``FAMILY_PROFILE``). Each
+    engine steps ("lm"), a cell of phase 13 (``FAMILY_PROFILE``) or one
+    first-order training step ("lm_train"). Each
     ``prng.bits`` and ``prng.sample_direction`` call is a
     ``record_function`` span; a direction's span holds its bits span."""
     import torch
@@ -3562,6 +3919,7 @@ def profile_phase(dev, cell):
 
     run, units, unit = {"zoo": _zoo_workload, "scan": _scan_workload,
                         "serve": _serve_workload, "lm": _lm_workload,
+                        "lm_train": _lm_train_workload,
                         **FAMILY_PROFILE}.get(
         cell, lambda _: _fcn_workload(cell))(dev)
 
@@ -3603,7 +3961,8 @@ def profile_phase(dev, cell):
             n, us = n + cn, us + cus
         return n, us
 
-    flash = [e for e in dev_events if "flash_attention" in e.key]
+    flash = [e for e in dev_events if "flash_attention" in e.key
+             and "bwd" not in e.key]
     # the port's kernels in the trace, by the names of their functions (the
     # profiler does not tie a launch made through ctypes to the span around
     # it, so the draws are counted here)
@@ -3694,7 +4053,7 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         for cell in ("d7", "async", "scan", "zoo", "serve", "lm",
-                     *FAMILY_PROFILE):
+                     *FAMILY_PROFILE, "lm_train"):
             profile_phase(dev, cell)
         return 0
     clock = PhaseClock()
@@ -3702,6 +4061,8 @@ def main() -> int:
     timed["prng_draw"], worst["prng_draw"] = draw_phase(dev, int_rate)
     timed["dual_matmul"], worst["dual_matmul"] = dual_matmul_phase(dev)
     timed["flash_attention"], worst["flash_attention"] = flash_phase(dev)
+    timed["flash_attention_bwd"], worst["flash_attention_bwd"] = \
+        flash_bwd_phase(dev)
     clock.lap("kernels")
     launches, blocks, main_stats = main_path_phase(dev)
     log(json.dumps({"main_path": main_stats}))
@@ -3728,6 +4089,9 @@ def main() -> int:
     clock.lap("lm_serving")
     log(json.dumps({"families": families_phase(dev)}))
     clock.lap("families")
+    launches["flash_attention_bwd"], lm_train = lm_train_phase(dev)
+    log(json.dumps({"lm_train": lm_train}))
+    clock.lap("lm_train")
     log(json.dumps({"phase_s": clock.laps}))
 
     sources = {
@@ -3743,13 +4107,21 @@ def main() -> int:
         # which the reference's sample_direction draws through
         "prng_draw": ("src/repro_torch/kernels/csrc/prng_draw.cu",
                       "src/repro/utils/prng.py:23"),
+        # not a Pallas kernel: the reference trains through pure-jnp
+        # attention and XLA differentiates it
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "none: XLA's autodiff of blocked_attention, "
+            "src/repro/models/attention.py:67"),
     }
     # launches: the D7 main path's fused run for defended_encode,
     # zo_update, dual_matmul and prng_draw, the vfl-zoo run for
-    # flash_attention; library_ms: no single torch call takes the keys or
-    # the bit streams of defended_encode, zo_update and prng_draw (torch's
-    # own generator draws other numbers), two torch.matmul calls compute
-    # dual_matmul, scaled_dot_product_attention flash_attention
+    # flash_attention, phase 14 (a)'s lm run for flash_attention_bwd;
+    # library_ms: no single torch call takes the keys or the bit streams
+    # of defended_encode, zo_update and prng_draw (torch's own generator
+    # draws other numbers), two torch.matmul calls compute dual_matmul,
+    # scaled_dot_product_attention flash_attention, and its backward
+    # through autograd flash_attention_bwd
     kernels = [{"name": name, "route": "cuda", "source": src_path,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": worst[name], "ms": timed[name]["kernel_ms"],

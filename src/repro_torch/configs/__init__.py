@@ -5,7 +5,7 @@ config, ``get_config(..., reduced=True)`` the smoke-test variant."""
 from repro_torch.configs.base import (NETWORK_PROFILES, DPConfig,
                                       ModelConfig, MoEConfig, NetworkConfig,
                                       RuntimeConfig, ServingConfig,
-                                      SSMConfig, VFLConfig)
+                                      SSMConfig, TrainConfig, VFLConfig)
 from repro_torch.configs.dense import (DEEPSEEK_7B, MINICPM_2B, QWEN15_05B,
                                        YI_34B)
 from repro_torch.configs.moe import PHI35_MOE_42B, QWEN3_MOE_30B
@@ -28,4 +28,5 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
 
 __all__ = ["ARCH_IDS", "get_config", "ModelConfig", "MoEConfig", "DPConfig",
            "VFLConfig", "NetworkConfig", "NETWORK_PROFILES", "PaperFCNConfig",
-           "PaperLRConfig", "RuntimeConfig", "ServingConfig", "SSMConfig"]
+           "PaperLRConfig", "RuntimeConfig", "ServingConfig", "SSMConfig",
+           "TrainConfig"]

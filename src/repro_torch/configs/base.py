@@ -3,8 +3,10 @@ paper's framework knobs, the DP defense and the wire's network model,
 copied from the reference's configs/base.py with the same fields,
 defaults, validation and ``enabled``/``resolved`` semantics.
 ``ModelConfig`` keeps the fields every family of the registry reads
-(dense, moe, ssm, hybrid, vlm, audio) and their serving cache; remat and
-the scan over layers have no counterpart here. ``RuntimeConfig``
+(dense, moe, ssm, hybrid, vlm, audio), their serving cache and ``remat``
+(per-layer activation checkpointing when a loss is differentiated); the
+scan over layers has no counterpart here. ``TrainConfig`` holds the
+first-order trainer's knobs. ``RuntimeConfig``
 holds the TCP federation runtime's knobs. ``dp/accountant.py``
 calibrates ``DPConfig.noise_multiplier`` from a target epsilon.
 """
@@ -61,7 +63,10 @@ class ModelConfig:
     # --- modality frontend stub ---
     frontend: str = "none"        # none | audio_stub | vq_stub
     dtype: str = "bfloat16"
-    chunked_ce: bool = False      # vocab-chunked loss (not ported)
+    remat: bool = True            # recompute each layer's activations in
+    #                               the backward (torch.utils.checkpoint)
+    chunked_ce: bool = False      # vocab-chunked loss: the (B, S, V)
+    #                               logits never exist
     kv_cache_dtype: str = "model"  # "model" (= activation dtype) | "int8"
     #                               (quantized serving cache, per-position/
     #                               head scales: half the decode cache bytes)
@@ -103,7 +108,7 @@ class ModelConfig:
             encoder_frames=min(self.encoder_frames, 32),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else None),
-            dtype="float32")
+            dtype="float32", remat=False)
 
     def num_params(self) -> int:
         """Parameter count: the embedding, the head, the final norm, every
@@ -376,3 +381,19 @@ class ServingConfig:
     cache_entries: int = 2048     # flag: --serve-cache — per-party LRU
     #                               answer-cache capacity, keyed
     #                               (sample id, params version)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The first-order trainer's knobs (the reference's TrainConfig)."""
+    batch_size: int = 8
+    seq_len: int = 128
+    steps: int = 100
+    lr: float = 3e-4
+    optimizer: str = "adam"       # adam | sgd | zo_sgd
+    schedule: str = "constant"    # constant | cosine | wsd
+    warmup_steps: int = 10
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    seed: int = 0
+    log_every: int = 10

@@ -7,7 +7,9 @@ the same weights. bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
 which torch cannot read; their 16-bit patterns are carried over as they
 are. ``asy_state_from_numpy`` does the same for a whole AsyREVEL state:
 w0, the stacked parties, the delay ring buffer, the step and the key
-(``jax.random.key_data``, a uint32 pair).
+(``jax.random.key_data``, a uint32 pair). ``train_state_from_numpy``
+carries the first-order trainer's state: the params, the Adam state
+{m, v, t} and the step.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.asyrevel import AsyState
+from repro_torch.launch.steps import TrainState
 from repro_torch.utils.device import resolve_device
 
 
@@ -42,3 +45,17 @@ def asy_state_from_numpy(w0, parties, hist, step, key_data, device=None):
                     params_from_numpy(parties, device),
                     params_from_numpy(hist, device), int(step),
                     (int(k[0]), int(k[1])))
+
+
+def train_state_from_numpy(params, opt, step, device=None) -> TrainState:
+    """A ``launch.steps.TrainState`` from the reference's TrainState fields
+    as numpy: ``params``, ``opt`` = {"m", "v", "t"} (t the Adam step count,
+    kept an int32 0-d tensor) and ``step``."""
+    device = resolve_device(device)
+    return TrainState(
+        params_from_numpy(params, device),
+        {"m": params_from_numpy(opt["m"], device),
+         "v": params_from_numpy(opt["v"], device),
+         "t": torch.tensor(int(np.asarray(opt["t"])), dtype=torch.int32,
+                           device=device)},
+        int(np.asarray(step)))

@@ -30,7 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("defended_encode", "zo_update", "dual_matmul",
-           "flash_attention", "prng_draw")
+           "flash_attention", "prng_draw", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -139,6 +139,19 @@ _SIGNATURES = {
                                  ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                  ctypes.c_int, _P)
         for t in ("f32", "bf16")
+    } | {
+        # q, k, v, out, lse (or null), q and kv positions (or null), B, S,
+        # H, KV, hd, scale, causal, stream
+        f"flash_attention_fwd_{t}": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _F, _I, _P)
+        for t in ("f32", "bf16")
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, do, lse, q and kv positions (or null), dq, dk, dv, B,
+        # S, H, KV, hd, scale, causal, stream
+        f"flash_attention_bwd_{t}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _F, _I, _P)
+        for t in ("f32", "bf16")
     },
     "dual_matmul": {
         # x, ldx, w, u, mu, y0, y1, M, N, K, stream
@@ -178,7 +191,12 @@ _SIGNATURES = {
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
+    """Set each entry's argument and return types. A library built from an
+    older source (a benchmark's baseline) may lack newer entries: those
+    are left undeclared, and calling one raises."""
     for fn, argtypes in _SIGNATURES[name].items():
-        f = getattr(lib, fn)
+        f = getattr(lib, fn, None)
+        if f is None:
+            continue
         f.argtypes = argtypes
         f.restype = ctypes.c_int

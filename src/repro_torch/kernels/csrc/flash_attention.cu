@@ -107,6 +107,20 @@
 // its 1536 clocks of products), clusters that share k and v loads, a TMA
 // store of out.
 //
+// Explicit positions and lse (the `flash_attention_fwd_*` entries; the
+// `flash_attention_*` entries launch without them): with q and kv positions
+// (B, S) int32 the causal mask is theirs, a key seen where its position is
+// at most the row's (the reference's blocked_attention(q_positions=,
+// kv_positions=); the model passes one positions tensor as both), applied in
+// every kv tile: `POS` is a template parameter,
+// so the kernels without it keep their code, and with it there is no causal
+// tile skipping (unsafe for arbitrary positions). A row that sees no key
+// keeps the -1e30 sentinel on every score and attends to all S keys alike,
+// as the reference's does (`online_softmax_pos`). With an lse pointer each
+// row's logsumexp of its scaled scores, (m + log2 l) ln 2 from the running
+// max and sum, goes to lse (B, H, S) f32, for the backward
+// (csrc/flash_attention_bwd.cu).
+//
 // Rounding: every f32 operation outside the tensor cores is an __f*_rn
 // intrinsic or ex2.approx, and the tf32 and bf16 roundings are spelled out
 // (built with --fmad=false too).
@@ -251,6 +265,67 @@ __device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2],
     l[ri] = __fadd_rn(__fmul_rn(l[ri], corr[ri]), total);
     m[ri] = m_new;
   }
+}
+
+// The mask by positions and the online softmax (POS): kv column kv is seen
+// by row ri where causal is off or its position kvpos[kv] is at most the
+// row's, qp[ri]; a masked score is the -1e30 sentinel and a column past S
+// is -inf. p = 2^(x c - m) is taken as the rounded product x c minus m, not
+// one fma: in a row whose every score is the sentinel, m is that rounded
+// product, so each key gets p = 2^0 = 1 and the row the mean of v, the
+// reference's; an fma would leave the product's rounding error, up to 2^73,
+// in the exponent. Columns past S give p = 0 even there.
+template <int NS>
+__device__ __forceinline__ void online_softmax_pos(
+    float (&s)[NS], float (&m)[2], float (&l)[2], float (&corr)[2], int k0,
+    int c0, int S, int causal, float c, const int* __restrict__ kvpos,
+    const int (&qp)[2]) {
+  const float minus_inf = __int_as_float(0xff800000);
+  float mx[2] = {minus_inf, minus_inf};
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kv = k0 + 8 * j + c0 + e;
+      const bool in = kv < S;
+      const int kp = in ? __ldg(kvpos + kv) : 0;
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        float& x = s[4 * j + 2 * ri + e];
+        x = in ? __fmul_rn((causal && kp > qp[ri]) ? NEG_INF : x, c)
+               : minus_inf;
+        mx[ri] = fmaxf(mx[ri], x);
+      }
+    }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    float t = mx[ri];
+    t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 1));
+    t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 2));
+    const float m_new = fmaxf(m[ri], t);
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * ri + e];
+        x = ex2(__fsub_rn(x, m_new));
+        sum = __fadd_rn(sum, x);
+      }
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+    corr[ri] = ex2(__fsub_rn(m[ri], m_new));
+    l[ri] = __fadd_rn(__fmul_rn(l[ri], corr[ri]), sum);
+    m[ri] = m_new;
+  }
+}
+
+// the row's logsumexp of its scaled scores, (m + log2 l) ln 2, for the
+// backward; the 4 lanes that share a row hold the same m and l
+__device__ __forceinline__ void write_lse(float* lse, long long at, float m,
+                                          float l, int lane) {
+  if (lse != nullptr && lane % 4 == 0)
+    lse[at] = __fmul_rn(__fadd_rn(m, log2f(l)), 0.6931471805599453f);
 }
 
 // two code paths behind a branch (edge: the tile is ragged or crosses the
@@ -585,13 +660,15 @@ struct F32Consumer {
   }
 };
 
-template <int HD>
+template <int HD, bool POS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, int S, int H, int group,
-                           float scale, int causal) {
+                           float* __restrict__ out, float* __restrict__ lse,
+                           const int* __restrict__ q_pos,
+                           const int* __restrict__ kv_pos, int S, int H,
+                           int group, float scale, int causal) {
   using T = F32Tile<HD>;
   using C = F32Consumer<HD>;
   constexpr int BKV = T::BKV, SETS = T::SETS;
@@ -617,7 +694,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const int b = bh / H, h = bh % H, kvh = h / group;
   const int q0 = qtile * BQ;
   int n_kv = (S + BKV - 1) / BKV;
-  if (causal) n_kv = min(n_kv, min(q0 + BQ - 1, S - 1) / BKV + 1);
+  if (causal && !POS) n_kv = min(n_kv, min(q0 + BQ - 1, S - 1) / BKV + 1);
 
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -676,7 +753,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     // the last kv tile this warpgroup's rows can see; later tiles are only
     // waited for and released
     int n_kv_wg = n_kv;
-    if (causal) n_kv_wg = min(n_kv, min(row_first + 63, S - 1) / BKV + 1);
+    if (causal && !POS)
+      n_kv_wg = min(n_kv, min(row_first + 63, S - 1) / BKV + 1);
+    const int* kvpos = POS ? kv_pos + (long long)b * S : nullptr;
+    int qp[2] = {0, 0};
+    if (POS)
+      for (int ri = 0; ri < 2; ++ri)
+        if (r0 + 8 * ri < S) qp[ri] = q_pos[(long long)b * S + r0 + 8 * ri];
     const uint32_t qh = q_hi + wg * 64 * ROW_BYTES;
     const uint32_t ql = q_lo + wg * 64 * ROW_BYTES;
     const float c = __fmul_rn(scale, 1.4426950408889634f);     // log2(e)
@@ -710,7 +793,11 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       mbar_arrive(k_empty(i));
       C::sum_chunks(sc);
       float (&s)[C::NS] = sc[0];
-      softmax_step(s, m, l, corr, i * BKV, r0, c0, edge(i), S, causal, c);
+      if constexpr (POS)
+        online_softmax_pos(s, m, l, corr, i * BKV, c0, S, causal, c, kvpos,
+                           qp);
+      else
+        softmax_step(s, m, l, corr, i * BKV, r0, c0, edge(i), S, causal, c);
       C::split_p(s, p_hi, p_lo);
       mbar_wait(v_full(i), parity);
       turn_wait(wg);
@@ -743,6 +830,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const int qi = r0 + 8 * ri;
       if (qi >= S) continue;
       const float den = fmaxf(l[ri], 1e-30f);
+      write_lse(lse, ((long long)b * H + h) * S + qi, m[ri], l[ri], lane);
       float* orow = out + (((long long)b * S + qi) * H + h) * HD;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
@@ -755,21 +843,24 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int B, int S, int H, int KV, float scale, int causal,
+               void* lse, const void* q_pos, const void* kv_pos, int B,
+               int S, int H, int KV, float scale, int causal,
                void* stream) {
   using T = F32Tile<HD>;
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
-  auto kern = flash_attention_f32_kernel<HD>;
+  auto kern = q_pos ? flash_attention_f32_kernel<HD, true>
+                    : flash_attention_f32_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
   kern<<<grid, THREADS, T::SMEM, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H,
-      H / KV, scale, causal);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, (const int*)q_pos, (const int*)kv_pos, S, H, H / KV,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -949,12 +1040,15 @@ struct Consumer {
   }
 };
 
-template <int HD>
+template <int HD, bool POS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v,
-                            __nv_bfloat16* __restrict__ out, int S, int H,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse,
+                            const int* __restrict__ q_pos,
+                            const int* __restrict__ kv_pos, int S, int H,
                             int group, float scale, int causal) {
   using T = Tile<HD>;
   using C = Consumer<HD>;
@@ -977,7 +1071,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = bh / H, h = bh % H, kvh = h / group;
   const int q0 = qtile * BQ;
   int n_kv = (S + BKV - 1) / BKV;
-  if (causal) n_kv = min(n_kv, min(q0 + BQ - 1, S - 1) / BKV + 1);
+  if (causal && !POS) n_kv = min(n_kv, min(q0 + BQ - 1, S - 1) / BKV + 1);
 
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -1020,7 +1114,13 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     // the last kv tile this warpgroup's rows can see; later tiles are
     // only waited for and released
     int n_kv_wg = n_kv;
-    if (causal) n_kv_wg = min(n_kv, min(row_first + 63, S - 1) / BKV + 1);
+    if (causal && !POS)
+      n_kv_wg = min(n_kv, min(row_first + 63, S - 1) / BKV + 1);
+    const int* kvpos = POS ? kv_pos + (long long)b * S : nullptr;
+    int qp[2] = {0, 0};
+    if (POS)
+      for (int ri = 0; ri < 2; ++ri)
+        if (r0 + 8 * ri < S) qp[ri] = q_pos[(long long)b * S + r0 + 8 * ri];
     const uint32_t q_wg = q_smem + wg * 64 * ROW_BYTES;
     const float c = __fmul_rn(scale, 1.4426950408889634f);     // log2(e)
     auto k_tile = [&](int i) { return k_smem + (i % STAGES) * T::KV_BYTES; };
@@ -1048,7 +1148,10 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(s);
-    C::softmax(s, m, l, corr, 0, r0, c0, edge(0), S, causal, c);
+    if constexpr (POS)
+      online_softmax_pos(s, m, l, corr, 0, c0, S, causal, c, kvpos, qp);
+    else
+      C::softmax(s, m, l, corr, 0, r0, c0, edge(0), S, causal, c);
     C::split(s, p_hi, p_lo);
     for (int i = 1; i < n_kv_wg; ++i) {
       mbar_wait(full + 8 * (i % STAGES), (i / STAGES) & 1);
@@ -1061,8 +1164,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
       reg_fence(s);
-      C::softmax(s, m, l, corr, i * BKV, r0, c0, edge(i), S, causal,
-                 c);
+      if constexpr (POS)
+        online_softmax_pos(s, m, l, corr, i * BKV, c0, S, causal, c, kvpos,
+                           qp);
+      else
+        C::softmax(s, m, l, corr, i * BKV, r0, c0, edge(i), S, causal, c);
       // the softmax, in PTX before the wait (the fences), and two code
       // paths behind a branch (edge or not) that ptxas does not schedule
       // across, so it runs under the p.v wgmmas
@@ -1100,6 +1206,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       const int qi = r0 + 8 * ri;
       if (qi >= S) continue;
       const float den = fmaxf(l[ri], 1e-30f);
+      write_lse(lse, ((long long)b * H + h) * S + qi, m[ri], l[ri], lane);
       __nv_bfloat16* orow = out + (((long long)b * S + qi) * H + h) * HD;
 #pragma unroll
       for (int hf = 0; hf < T::HALVES; ++hf)
@@ -1161,7 +1268,8 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int H, int KV, float scale, int causal,
+                void* lse, const void* q_pos, const void* kv_pos, int B,
+                int S, int H, int KV, float scale, int causal,
                 void* stream) {
   using T = Tile<HD>;
   const void* ptrs[4] = {q, k, v, out};
@@ -1175,14 +1283,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   if (res == CUDA_SUCCESS) res = encode(fn, &map_k, k, B, S, KV, HD, T::BKV);
   if (res == CUDA_SUCCESS) res = encode(fn, &map_v, v, B, S, KV, HD, T::BKV);
   if (res != CUDA_SUCCESS) return (int)res;
-  auto kern = flash_attention_bf16_kernel<HD>;
+  auto kern = q_pos ? flash_attention_bf16_kernel<HD, true>
+                    : flash_attention_bf16_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
   kern<<<grid, THREADS, T::SMEM, (cudaStream_t)stream>>>(
-      map_q, map_k, map_v, (__nv_bfloat16*)out, S, H, H / KV, scale,
-      causal);
+      map_q, map_k, map_v, (__nv_bfloat16*)out, (float*)lse,
+      (const int*)q_pos, (const int*)kv_pos, S, H, H / KV, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1197,29 +1306,54 @@ int check(int B, int S, int H, int KV) {
 
 }  // namespace
 
+// q_pos and kv_pos both null or both (B, S) int32; lse null or (B, H, S) f32
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
+                                       const void* v, void* out, void* lse,
+                                       const void* q_pos, const void* kv_pos,
+                                       int B, int S, int H, int KV, int hd,
+                                       float scale, int causal,
+                                       void* stream) {
+  const int c = check(B, S, H, KV);
+  if (c >= 0) return c;
+  if (hd == 64)
+    return launch_f32<64>(q, k, v, out, lse, q_pos, kv_pos, B, S, H, KV,
+                          scale, causal, stream);
+  if (hd == 128)
+    return launch_f32<128>(q, k, v, out, lse, q_pos, kv_pos, B, S, H, KV,
+                           scale, causal, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+                                        const void* v, void* out, void* lse,
+                                        const void* q_pos, const void* kv_pos,
+                                        int B, int S, int H, int KV, int hd,
+                                        float scale, int causal,
+                                        void* stream) {
+  const int c = check(B, S, H, KV);
+  if (c >= 0) return c;
+  if (hd == 64)
+    return launch_bf16<64>(q, k, v, out, lse, q_pos, kv_pos, B, S, H, KV,
+                           scale, causal, stream);
+  if (hd == 128)
+    return launch_bf16<128>(q, k, v, out, lse, q_pos, kv_pos, B, S, H, KV,
+                            scale, causal, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// without lse and positions: the launches every forward-only path makes
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out,
                                    int B, int S, int H, int KV, int hd,
                                    float scale, int causal, void* stream) {
-  const int c = check(B, S, H, KV);
-  if (c >= 0) return c;
-  if (hd == 64)
-    return launch_f32<64>(q, k, v, out, B, S, H, KV, scale, causal, stream);
-  if (hd == 128)
-    return launch_f32<128>(q, k, v, out, B, S, H, KV, scale, causal, stream);
-  return (int)cudaErrorInvalidValue;
+  return flash_attention_fwd_f32(q, k, v, out, nullptr, nullptr, nullptr, B,
+                                 S, H, KV, hd, scale, causal, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out,
                                     int B, int S, int H, int KV, int hd,
                                     float scale, int causal, void* stream) {
-  const int c = check(B, S, H, KV);
-  if (c >= 0) return c;
-  if (hd == 64)
-    return launch_bf16<64>(q, k, v, out, B, S, H, KV, scale, causal, stream);
-  if (hd == 128)
-    return launch_bf16<128>(q, k, v, out, B, S, H, KV, scale, causal,
-                            stream);
-  return (int)cudaErrorInvalidValue;
+  return flash_attention_fwd_bf16(q, k, v, out, nullptr, nullptr, nullptr,
+                                  B, S, H, KV, hd, scale, causal, stream);
 }

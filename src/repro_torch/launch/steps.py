@@ -1,20 +1,88 @@
 """Step functions driven by launch/train.py and launch/serve.py, mirroring
 the reference's launch/steps.py:
 
+  train_step   — first-order Adam LM training (the substrate baseline)
   vfl_zoo_step — the paper's technique at framework scale: party towers +
                  backbone, AsyREVEL block-coordinate ZO updates
   prefill_step — full-sequence forward (inference prefill)
   serve_step   — ONE new token against a KV cache / recurrent state
 
-The first-order ``lm`` step and the sharded (``mesh``) path are not ported
-yet: the steps run on one device.
+The sharded (``mesh``) path is not ported yet: the steps run on one
+device.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
 
 from repro_torch.configs.base import VFLConfig
 from repro_torch.core import asyrevel
 from repro_torch.core.exchange import ZOExchange
 from repro_torch.core.vfl import TransformerVFLModel
+from repro_torch.optim.optimizers import adam_init, adam_update
+from repro_torch.utils import trees
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt: dict           # {"m", "v", "t"} (optim/optimizers.adam_init)
+    step: int
+
+
+def make_train_state(model, key, device, state_dtype=torch.float32):
+    """The model's params from ``key`` on ``device``, zero Adam moments in
+    ``state_dtype`` (bf16 halves the optimizer memory; the arithmetic
+    stays f32) and step 0."""
+    params = model.init(key, device)
+    return TrainState(params, adam_init(params, state_dtype), 0)
+
+
+def make_train_step(model, schedule=None, grad_clip: float = 1.0,
+                    microbatches: int = 1):
+    """First-order Adam step: ``train_step(state, batch) -> (state, (loss,
+    metrics))``. The loss's gradient comes from autograd through every
+    layer (attention through the flash_attention kernel and its backward
+    kernel), at ``schedule(state.step)`` (3e-4 without one). With
+    ``microbatches`` > 1 the batch's leading axis is cut into that many
+    slices in order, and f32 gradients are accumulated, each slice's
+    divided by the count, as are the losses; the metrics are the last
+    slice's (the reference's scan). Peak activation memory drops about
+    1/microbatches at the same math."""
+    sched = schedule or (lambda s: 3e-4)
+
+    def grads_of(params, batch):
+        leaves = trees.leaves(params)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        loss, metrics = model.loss(trees.unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live)
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        return loss.detach(), metrics, trees.unflatten(params, grads)
+
+    def train_step(state: TrainState, batch):
+        if microbatches == 1:
+            loss, metrics, grads = grads_of(state.params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0] // microbatches
+            dev = trees.leaves(state.params)[0].device
+            count = torch.full((), microbatches, dtype=torch.float32,
+                               device=dev)
+            grads = trees.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), state.params)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(microbatches):
+                mb = {k: a[i * n:(i + 1) * n] for k, a in batch.items()}
+                loss_i, metrics, g_i = grads_of(state.params, mb)
+                grads = trees.tree_map(lambda a, g: a + g.float() / count,
+                                       grads, g_i)
+                loss = loss + loss_i / count
+        params, opt = adam_update(state.params, grads, state.opt,
+                                  sched(state.step), grad_clip=grad_clip)
+        return TrainState(params, opt, state.step + 1), (loss, metrics)
+
+    return train_step
 
 
 def make_prefill_step(model):

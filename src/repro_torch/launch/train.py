@@ -1,6 +1,10 @@
 """Training launcher of the port.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+      --mode lm --batch-size 4 --seq-len 2048 --steps 5  # on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+      --mode lm --reduced --steps 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --mode vfl-zoo --parties 4 --batch-size 4 --seq-len 2048 --steps 5 \
       --fused --codec int8                          # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
@@ -8,6 +12,17 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --mode vfl-zoo --transport tcp --parties 3 --steps 5 --dropout-at 2 \
       --ckpt-dir DIR                                # then --steps 8 --resume
+
+Mode ``lm`` (the default): first-order Adam training of an architecture
+of the registry, as the reference's ``repro.launch.train --mode lm``: the
+same data and batch draws, the schedule (``wsd`` for minicpm, ``cosine``
+otherwise, warmup max(1, steps // 20); ``--schedule`` picks another),
+global-norm clipping at 1, ``--opt-state-dtype bf16`` for bf16 moments.
+Gradients come from autograd, attention's from the flash_attention
+backward kernel; the full configs checkpoint each layer (``remat``).
+``--ckpt-dir`` saves the params and the optimizer state after the run and
+``--resume`` continues them, the schedule's step and the batch stream, so
+2 steps and a resumed 2 are 4 straight steps, bit for bit.
 
 Mode ``vfl-zoo``: the paper's AsyREVEL black-box VFL training of an
 architecture of the registry (the server model F_0, of any family:
@@ -58,7 +73,7 @@ repro_torch.obs.live DIR``). Both change no bit of a run, and every
 metric line is also a ``metric`` record.
 
 The parser takes the reference's whole flag set. What the port does not
-run yet is refused with an error: ``--mode lm`` and ``--data-parallel``.
+run yet is refused with an error: ``--data-parallel``.
 """
 from __future__ import annotations
 
@@ -78,6 +93,7 @@ from repro_torch.dp.accountant import resolve_dp
 from repro_torch.launch import steps as step_lib
 from repro_torch.models.model import build_model
 from repro_torch.obs.metrics import ObsMetricLogger
+from repro_torch.optim.schedules import make_schedule
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
@@ -101,7 +117,9 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=int, default=64)
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--schedule", default=None,
-                   help="lm only: constant|cosine|wsd")
+                   help="lm only (vfl-zoo ignores it, as the reference "
+                        "does): constant|cosine|wsd (default: wsd for "
+                        "minicpm, cosine otherwise)")
     p.add_argument("--parties", type=int, default=4)
     p.add_argument("--data-parallel", type=int, default=1,
                    help="shard the vfl-zoo batch over N devices")
@@ -210,6 +228,12 @@ def parse_args(argv=None):
     if args.resume and not args.ckpt_dir:
         p.error("--resume restores from --ckpt-dir; pass --ckpt-dir")
     if args.dp_epsilon is not None:
+        if args.mode != "vfl-zoo":
+            p.error("--dp-epsilon defends the party->server upload seam "
+                    "of the vfl-zoo protocol; --mode lm has no federated "
+                    "boundary (and gradient-emitting frameworks like tig "
+                    "leak on the DOWN-link, which upload noise cannot "
+                    "defend — see docs/dp.md)")
         if args.dp_epsilon <= 0:
             p.error("--dp-epsilon must be > 0 (use 'inf' to disable)")
         if math.isfinite(args.dp_epsilon) and args.dp_clip is None:
@@ -218,17 +242,17 @@ def parse_args(argv=None):
     elif args.dp_clip is not None or args.dp_delta is not None:
         p.error("--dp-clip/--dp-delta configure the DP mechanism; they "
                 "require --dp-epsilon")
-    if args.schedule is not None or args.opt_state_dtype != "f32":
-        p.error("--schedule/--opt-state-dtype configure the first-order lm "
-                "trainer; vfl-zoo keeps no Adam state")
-    refused = [
-        (args.mode != "vfl-zoo", f"--mode {args.mode} (first-order Adam "
-         "needs a backward pass)"),
-        (args.data_parallel != 1, "--data-parallel"),
-    ]
-    for hit, what in refused:
-        if hit:
-            p.error(f"{what} {NOT_PORTED}")
+    if args.fused and args.mode != "vfl-zoo":
+        p.error("--fused fuses the vfl-zoo release hot path "
+                "(kernels/fused_round); --mode lm has no exchange seam")
+    if args.codec != "f32" and args.mode != "vfl-zoo":
+        p.error("--codec compresses the vfl-zoo up-link payloads; "
+                "--mode lm has no exchange seam")
+    if args.opt_state_dtype != "f32" and args.mode != "lm":
+        p.error("--opt-state-dtype quantizes the Adam moments of the "
+                "first-order lm trainer; vfl-zoo keeps no Adam state")
+    if args.data_parallel != 1:
+        p.error(f"--data-parallel {NOT_PORTED}")
     if args.dp_delta is None:
         args.dp_delta = 1e-5
     return args
@@ -435,7 +459,8 @@ def price_network(args, cfg, vfl) -> dict:
 
 
 def main(argv=None) -> dict:
-    """Run the launcher. vfl-zoo in memory returns {"h": per-step losses,
+    """Run the launcher. lm returns ``run_lm``'s dict. vfl-zoo in memory
+    returns {"h": per-step losses,
     "step_s": per-step host seconds (each ends when h reaches the host),
     "setup_s": seconds of data and state set-up, "start_step": the step
     resumed from (0 without --resume), "device": the torch device}, plus
@@ -501,6 +526,76 @@ def draw_batch(rng, data, batch_size):
     return {k: a[idx] for k, a in data.items()}
 
 
+def run_lm(args, cfg, device, log) -> dict:
+    """--mode lm: first-order Adam training, the reference's loop. Returns
+    {"loss", "ce", "aux", "lr": per step, "step_s": per-step host seconds
+    (each ends when the loss reaches the host), "steps_per_s", "setup_s",
+    "peak_bytes" (the device's peak allocation over the steps, 0 on the
+    CPU), "start_step", "device", "state": the final TrainState}."""
+    t_setup = time.perf_counter()
+    model = build_model(cfg)
+    n = max(64, args.batch_size * 8)
+    data = make_batch_arrays(cfg, n, args.seq_len, args.seed, device)
+    sched = make_schedule(
+        args.schedule or ("wsd" if args.arch.startswith("minicpm")
+                          else "cosine"),
+        args.lr, args.steps, warmup=max(1, args.steps // 20))
+    state = step_lib.make_train_state(
+        model, prng.key(args.seed), device,
+        state_dtype=(torch.bfloat16 if args.opt_state_dtype == "bf16"
+                     else torch.float32))
+    rng = np.random.default_rng(args.seed)
+    start_step = 0
+    if args.resume:
+        step0 = latest_step(args.ckpt_dir)
+        if step0 is not None:
+            restored, _ = restore_checkpoint(
+                args.ckpt_dir, {"params": state.params, "opt": state.opt},
+                step0)
+            # a continuation, not a replay: the moments and the schedule's
+            # step resume where they were, and the batch stream
+            # fast-forwards past the consumed draws
+            state = step_lib.TrainState(restored["params"], restored["opt"],
+                                        step0)
+            start_step = step0
+            for _ in range(step0):
+                rng.integers(0, n, args.batch_size)
+            log.log(0, resumed_from=step0)
+    train_step = step_lib.make_train_step(model, sched)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    setup_s = time.perf_counter() - t_setup
+    out = {"loss": [], "ce": [], "aux": [], "lr": [], "step_s": []}
+    t0 = time.perf_counter()
+    for s in range(args.steps):
+        t = time.perf_counter()
+        lr = float(sched(start_step + s))
+        state, (loss, metrics) = train_step(
+            state, draw_batch(rng, data, args.batch_size))
+        out["loss"].append(float(loss))
+        out["step_s"].append(time.perf_counter() - t)
+        out["ce"].append(float(metrics["ce"]))
+        out["aux"].append(float(metrics["aux"]))
+        out["lr"].append(lr)
+        if s % args.log_every == 0 or s == args.steps - 1:
+            log.log(start_step + s, loss=out["loss"][-1], ce=out["ce"][-1],
+                    aux=out["aux"][-1], lr=lr)
+    dt = time.perf_counter() - t0
+    out["steps_per_s"] = args.steps / dt
+    log.log(args.steps, done=1, steps_per_s=out["steps_per_s"])
+    if args.ckpt_dir:
+        # a resumed run commits PAST the restored step, or the next resume
+        # would restore the earlier checkpoint and drop this run's work
+        save_checkpoint(args.ckpt_dir, start_step + args.steps,
+                        {"params": state.params, "opt": state.opt},
+                        {"arch": args.arch, "mode": "lm"})
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                         if device.type == "cuda" else 0)
+    return {**out, "setup_s": setup_s, "start_step": start_step,
+            "device": str(device), "state": state}
+
+
 def _dispatch(args, cfg, device) -> dict:
     if args.serve is not None:
         return run_serve(args, cfg, device,
@@ -509,8 +604,10 @@ def _dispatch(args, cfg, device) -> dict:
         # the LR problem pads its d_model features to q equal blocks
         return run_tcp(args, cfg, device,
                        ObsMetricLogger(f"train:{args.arch}:vfl-zoo-tcp"))
-    t_setup = time.perf_counter()
     log = ObsMetricLogger(f"train:{args.arch}:{args.mode}")
+    if args.mode == "lm":
+        return run_lm(args, cfg, device, log)
+    t_setup = time.perf_counter()
     vfl, step, state, data = make_zoo_run(args, cfg, device)
     n = len(data["tokens"])
     dp = vfl.dp

@@ -5,9 +5,11 @@ mirroring the reference's models/attention.py.
 
 Full-sequence causal attention runs on the flash_attention kernel
 (kernels/flash_attention.py) where the reference runs its pure-jnp
-``blocked_attention``; the kernel's mask is position 0..S-1, so explicit
-positions raise. A sliding window routes to ``windowed_attention``, the
-reference's banded q-block scan in plain torch. Decoding attends one new
+``blocked_attention``, and its gradient on the backward kernel; explicit
+positions go to the kernel as its mask, as the reference passes them as
+q and kv positions. A sliding window routes to ``windowed_attention``,
+the reference's banded q-block scan in plain torch, which masks by index
+whatever the positions (as the reference's does). Decoding attends one new
 token against the cache (``decode_attention``, plain torch, as the
 reference's einsum): the cache holds the model's dtype or int8 with a
 scale per position and kv head, and under a sliding window it is a
@@ -133,16 +135,22 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def attn_apply(p, cfg: ModelConfig, x, positions, *, causal: bool = True):
-    """Full-sequence self-attention (train / prefill). ``positions`` must be
-    0..S-1 on every row: the kernel and the window mask by position in the
-    sequence. A causal sliding window takes ``windowed_attention``, as the
-    reference's does; everything else the flash_attention kernel."""
+def attn_apply(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
+               mask_positions: bool = False):
+    """Full-sequence self-attention (train / prefill). RoPE reads
+    ``positions`` (B, S). With ``mask_positions`` (the caller's positions
+    are explicit) the causal mask is by them, key position <= query
+    position per batch row; without, by index (the same mask for
+    positions 0..S-1, and today's launch). A causal sliding window takes
+    ``windowed_attention``, as the reference's does; everything else the
+    flash_attention kernel."""
     q, k, v = _project_qkv(p, cfg, x, positions, rope=cfg.pos_emb == "rope")
     if cfg.sliding_window is not None and causal:
         o = windowed_attention(q, k, v, cfg.sliding_window)
     else:
-        o = ops.flash_attention(q, k, v, causal=causal)
+        o = ops.flash_attention(
+            q, k, v, causal=causal,
+            positions=positions if mask_positions and causal else None)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
 

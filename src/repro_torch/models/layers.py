@@ -1,5 +1,6 @@
 """Primitive layers (functional, params as dicts of tensors): the paper
-models' dense layer and cross entropy, and the transformer's RMSNorm,
+models' dense layer and cross entropy (plain and vocab-chunked, with an
+optional loss mask), and the transformer's RMSNorm,
 RoPE, sinusoidal positions, SwiGLU and embedding, mirroring the
 reference's models/layers.py.
 Inits draw the reference's ``jax.random.normal`` bits exactly."""
@@ -9,6 +10,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.utils import prng
 
@@ -137,9 +139,73 @@ def swiglu_apply(params, x: torch.Tensor) -> torch.Tensor:
     return (silu(g) * u) @ params["w_down"]
 
 
-def cross_entropy_loss(logits, labels):
-    """Mean cross entropy: logsumexp(logits) - logits[label], in f32."""
+def _token_mean(nll, mask):
+    """The mean of nll over the tokens, or with a mask the reference's
+    sum(nll * mask) / max(sum(mask), 1), in f32."""
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Token-mean cross entropy: logsumexp(logits) - logits[label], in f32;
+    with ``mask`` the masked tokens' mean (``_token_mean``)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
-    return torch.mean(logz - ll)
+    return _token_mean(logz - ll, mask)
+
+
+def _ce_chunk(x, w_c, labels, start: int, vocab: int, m, l, ll):
+    """One vocab chunk of ``chunked_cross_entropy``: its f32 logits (padded
+    entries at -1e30), the online logsumexp's (m, l) and the label logit
+    ll, updated."""
+    logits = x.float() @ w_c.float()
+    chunk = w_c.shape[1]
+    if start + chunk > vocab:
+        vid = start + torch.arange(chunk, device=x.device)
+        logits = torch.where(vid < vocab, logits,
+                             torch.full((), -1e30, device=x.device))
+    m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+    l = l * torch.exp(m - m_new) + torch.sum(
+        torch.exp(logits - m_new[..., None]), dim=-1)
+    local = labels.long() - start
+    hit = (local >= 0) & (local < chunk)
+    got = torch.gather(logits, -1,
+                       torch.clamp(local, 0, chunk - 1)[..., None])[..., 0]
+    return m_new, l, ll + torch.where(hit, got, torch.zeros((),
+                                                            device=x.device))
+
+
+def chunked_cross_entropy(x, w, labels, mask=None, chunk: int = 16384):
+    """The reference's vocab-chunked cross entropy: the (B, S, V) logits
+    never exist. x (B, S, d) is the final hidden state (after the norm), w
+    (d, V) the head, labels (B, S) int. Vocab chunks of ``chunk`` columns
+    (the last padded with zero columns, their logits masked at -1e30) run
+    the head's product in f32 with an online logsumexp and the label
+    logit picked out per chunk; nll = log(l) + m - ll, then the token mean
+    (``_token_mean``). Under autograd each chunk is recomputed in the
+    backward (``torch.utils.checkpoint``), so the backward too keeps only
+    the (B, S) carries and one chunk's logits, which is what chunking is
+    for. Plain torch: the reference computes it outside any Pallas
+    kernel."""
+    B, S, _ = x.shape
+    V = w.shape[1]
+    chunk = min(chunk, V)
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    l = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    ll = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    for start in range(0, V, chunk):
+        w_c = w[:, start:start + chunk]
+        if w_c.shape[1] < chunk:
+            w_c = torch.cat([w_c, w_c.new_zeros((w.shape[0],
+                                                 chunk - w_c.shape[1]))], 1)
+        if remat:
+            m, l, ll = torch.utils.checkpoint.checkpoint(
+                _ce_chunk, x, w_c, labels, start, V, m, l, ll,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            m, l, ll = _ce_chunk(x, w_c, labels, start, V, m, l, ll)
+    return _token_mean((torch.log(l) + m) - ll, mask)

@@ -15,9 +15,12 @@ ids of the shared vocabulary, the mask picks a modality embedding row)
 and "frames" (B, F, d_model) for audio (the conv frontend stub's
 output). The VFL mode (core/vfl.py) passes the party towers'
 concatenated output as batch["embeds"] (B, S, d_model) instead of
-tokens. Positions are 0..S-1 (the attention kernel's and the window's
-mask); a "positions" entry raises. ``decode_step`` updates the cache in
-place and returns it.
+tokens. Optional entries, as the reference reads them: "positions" (B,
+S) int, for RoPE and as the causal mask's positions (default 0..S-1);
+"loss_mask" (B, S), the tokens ``loss`` averages over; "pos_offset", which
+decides whether sinusoidal positions are added (``_embed``). With
+``cfg.chunked_ce`` the loss never builds the (B, S, V) logits.
+``decode_step`` updates the cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (cross_entropy_loss, embedding_init,
+from repro_torch.models.layers import (chunked_cross_entropy,
+                                       cross_entropy_loss, embedding_init,
                                        rms_norm, sinusoidal_position_at,
                                        sinusoidal_positions)
 from repro_torch.utils import prng, trees
@@ -75,6 +79,10 @@ class Model:
         return self.cfg.replace(enc_dec=False, sliding_window=None)
 
     def _embed(self, params, batch):
+        """The input embeddings. Sinusoidal positions 0..S-1 are added
+        when batch["pos_offset"] is absent or an int, whatever its value,
+        and not at all for any other offset (a tensor): the reference's
+        rule, kept as it is."""
         cfg = self.cfg
         if "embeds" in batch:                 # VFL party-tower path
             x = batch["embeds"].to(self.dtype)
@@ -82,7 +90,8 @@ class Model:
             x = params["embed"][batch["tokens"].long()]
         if cfg.frontend == "vq_stub" and "modality_mask" in batch:
             x = x + params["modality_embed"][batch["modality_mask"].long()]
-        if cfg.pos_emb == "sinusoidal":
+        if cfg.pos_emb == "sinusoidal" and \
+                isinstance(batch.get("pos_offset", 0), int):
             pe = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
             x = x + pe[None].to(self.dtype)
         return x
@@ -107,28 +116,41 @@ class Model:
             else params["lm_head"]
         return x @ w.to(self.dtype)
 
-    def forward(self, params, batch):
-        if "positions" in batch:
-            raise NotImplementedError(
-                "explicit positions: the flash_attention kernel masks by "
-                "position 0..S-1, which is what forward uses without them")
+    def _backbone(self, params, batch):
+        """Embeddings through every layer: (x (B, S, d) before the final
+        norm, aux). Explicit batch["positions"] feed RoPE and the causal
+        mask; without them both use 0..S-1 (the mask by index)."""
         x = self._embed(params, batch)
         B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        explicit = "positions" in batch
+        positions = batch["positions"].to(x.device) if explicit else \
+            torch.arange(S, device=x.device)[None, :].expand(B, S)
         enc_out = self._encode(params, batch["frames"]) \
             if self.cfg.enc_dec else None
-        x, aux = tf.stack_forward(params["layers"], self.cfg, x, positions,
-                                  enc_out=enc_out, causal=True)
+        return tf.stack_forward(params["layers"], self.cfg, x, positions,
+                                enc_out=enc_out, causal=True,
+                                mask_positions=explicit)
+
+    def forward(self, params, batch):
+        x, aux = self._backbone(params, batch)
         return self._head(params, x), aux
 
     def loss(self, params, batch):
+        """(ce + aux, {"ce", "aux"}): the token-mean cross entropy over
+        batch["loss_mask"] where given. With ``cfg.chunked_ce`` the head
+        runs inside the vocab-chunked loss, which never builds the
+        logits."""
+        mask = batch.get("loss_mask")
         if self.cfg.chunked_ce:
-            raise NotImplementedError("chunked_ce: no config sets it; the "
-                                      "vocab-chunked loss is not ported")
-        if "loss_mask" in batch:
-            raise NotImplementedError("loss_mask is not ported")
+            x, aux = self._backbone(params, batch)
+            x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+            w = params["embed"].T if self.cfg.tie_embeddings \
+                else params["lm_head"]
+            ce = chunked_cross_entropy(x, w.to(self.dtype), batch["targets"],
+                                       mask)
+            return ce + aux, {"ce": ce, "aux": aux}
         logits, aux = self.forward(params, batch)
-        ce = cross_entropy_loss(logits, batch["targets"])
+        ce = cross_entropy_loss(logits, batch["targets"], mask)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, params, batch_size: int, max_len: int, frames=None):

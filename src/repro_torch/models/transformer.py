@@ -4,12 +4,16 @@ and its decoder with cross attention)), full-sequence and one token at a
 time, mirroring the reference's models/transformer.py. Per-layer params and
 per-layer decode caches are stacked on a leading L axis as in the
 reference's scans; ``stack_forward`` and ``stack_decode`` are Python loops
-over that axis. Remat and sharding constraints have no counterpart:
-nothing here is differentiated or sharded.
+over that axis. Under ``cfg.remat`` a differentiated ``stack_forward``
+checkpoints each layer (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan body): its activations are recomputed in
+the backward, with the same numbers. Sharding constraints have no
+counterpart: nothing here is sharded.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -73,10 +77,11 @@ def _mix(x, a, m):
 
 
 def block_forward(p, cfg: ModelConfig, x, positions, enc_out=None,
-                  causal: bool = True):
+                  causal: bool = True, mask_positions: bool = False):
     """One layer, full sequence. Returns (x, aux_loss): the router's aux
     loss for moe, 0 otherwise. ``enc_out`` (B, F, d), when given, feeds
-    the decoder layer's cross attention."""
+    the decoder layer's cross attention. ``mask_positions``: attention
+    masks by ``positions`` (explicit positions) instead of the index."""
     if cfg.family == "ssm":
         h, _ = rwkv.rwkv_time_mix_apply(p["tmix"], cfg,
                                         rms_norm(x, p["norm1"], cfg.norm_eps))
@@ -85,7 +90,8 @@ def block_forward(p, cfg: ModelConfig, x, positions, enc_out=None,
             p["cmix"], rms_norm(x, p["norm2"], cfg.norm_eps))
         return x + h.to(x.dtype), 0.0
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-    a, _ = attn.attn_apply(p["attn"], cfg, xn, positions, causal=causal)
+    a, _ = attn.attn_apply(p["attn"], cfg, xn, positions, causal=causal,
+                           mask_positions=mask_positions)
     if cfg.family == "hybrid":
         m, _ = mb.mamba_apply(p["mamba"], cfg, xn)
         x = _mix(x, a, m)
@@ -107,12 +113,25 @@ def _layer(stacked, layer: int):
 
 
 def stack_forward(stacked, cfg: ModelConfig, x, positions, enc_out=None,
-                  causal: bool = True):
-    """Every layer in order. Returns (x, total_aux)."""
+                  causal: bool = True, mask_positions: bool = False):
+    """Every layer in order. Returns (x, total_aux). Under ``cfg.remat``,
+    when something it reads requires grad, each layer is a checkpoint:
+    only its input is kept, and the backward recomputes its forward (the
+    same launches, so the same numbers)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(trees.leaves(stacked)[0].shape[0]):
-        x, a = block_forward(_layer(stacked, layer), cfg, x, positions,
-                             enc_out=enc_out, causal=causal)
+    leaves = trees.leaves(stacked)
+    remat = cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in leaves)
+        or (enc_out is not None and enc_out.requires_grad))
+    for layer in range(leaves[0].shape[0]):
+        args = (_layer(stacked, layer), cfg, x, positions, enc_out, causal,
+                mask_positions)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                block_forward, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, a = block_forward(*args)
         aux = aux + a
     return x, aux
 

@@ -6,6 +6,8 @@ leaves in the order b1, b2, w1, w2. These helpers keep that order.
 """
 from __future__ import annotations
 
+import torch
+
 
 def leaves(tree) -> list:
     if isinstance(tree, dict):
@@ -35,3 +37,15 @@ def tree_bytes(tree) -> int:
     """Total bytes of the tensors of a tree (the reference's
     ``utils/trees.tree_bytes``)."""
     return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def global_norm(tree):
+    """The reference's ``global_norm``: the square root of the sum over the
+    leaves, in flatten order, of each leaf's f32 sum of squares, as a 0-d
+    f32 tensor. The root is taken in f64 and rounded once: torch's CPU f32
+    sqrt is not correctly rounded."""
+    total = None
+    for x in leaves(tree):
+        s = torch.sum(torch.square(x.float()))
+        total = s if total is None else total + s
+    return torch.sqrt(total.double()).float()

@@ -4,6 +4,9 @@ bitwise, dual_matmul and flash_attention
 within a stated tolerance (their sums run in another order than the
 plain versions') and bitwise where only their own order is involved, and
 a reduced vfl-zoo step on the card against the same step on the CPU,
+the flash_attention backward kernel (and the forward's lse and positions)
+against their plain versions, first-order LM training on the card
+against the CPU,
 LM serving (decode, sampling, the engine) on the card against the CPU,
 and the MoE dispatch (deterministic, ties to the lower expert) and the
 moe, vlm and audio families' decode on the card against the CPU.
@@ -352,7 +355,8 @@ def test_flash_attention_kernel_vs_plain(cuda, B, S, H, KV, hd, causal,
 
 def test_flash_attention_kernels_run_on_the_tensor_cores(cuda):
     """Each of the built library's kernel functions (bf16 and f32, hd 64
-    and 128) holds HGMMA (wgmma) instructions in its own SASS."""
+    and 128, with and without positions) holds HGMMA (wgmma) instructions
+    in its own SASS."""
     import shutil
     import subprocess
     from pathlib import Path
@@ -370,8 +374,9 @@ def test_flash_attention_kernels_run_on_the_tensor_cores(cuda):
              for chunk in sass.split("Function : ")[1:]}
     for kernel in ("flash_attention_f32_kernel",
                    "flash_attention_bf16_kernel"):
+        # hd 64 and 128, each without and with explicit positions
         mine = [text for name, text in funcs.items() if kernel in name]
-        assert len(mine) == 2 and all("HGMMA" in text for text in mine)
+        assert len(mine) == 4 and all("HGMMA" in text for text in mine)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -735,3 +740,112 @@ def test_new_families_decode_on_the_card_matches_the_cpu(cuda, arch):
         out[device.type] = (full.cpu(), torch.cat(rows, dim=1).cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+# the backward kernel against flash_attention_bwd_plain: f32 within 1e-4 of
+# each gradient's largest magnitude (the sums in other orders over S), bf16
+# within 2e-2 (bf16 inputs, each output rounded once)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 256, 4, 4, 64),
+                                         (1, 200, 8, 2, 128),
+                                         (2, 129, 4, 2, 64),
+                                         (1, 1000, 8, 2, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_vs_plain(cuda, B, S, H, KV, hd,
+                                                  causal, dtype):
+    """dq, dk, dv of the kernel against the plain backward from the same
+    forward output and lse; two calls bitwise (no atomics); the forward
+    with lse gives the forward-only launch's output bitwise, its lse the
+    plain row logsumexp within 1e-5."""
+    g = torch.Generator(cuda).manual_seed(S + H + 7)
+    q, do = (torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    out, lse = flash_attention._launch_fwd(q, k, v, causal, None, True)
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal))
+    _, want_lse = flash_attention.flash_attention_plain(q, k, v, causal,
+                                                        return_lse=True)
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * float(
+        want_lse.abs().max())
+    n0 = flash_attention.flash_attention_bwd.launches
+    got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, causal)
+    again = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, causal)
+    assert flash_attention.flash_attention_bwd.launches == n0 + 2
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, do, lse,
+                                                     causal)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and a.dtype == dtype
+        assert _rel(a, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_positions_and_blind_rows_on_the_card(cuda, dtype,
+                                                              hd):
+    """Explicit q and kv positions, some rows seeing no key: the forward
+    and the gradients through autograd against the plain versions; a
+    blind row is the mean of v and passes no gradient to q."""
+    B, S, H, KV = 2, 300, 4, 2
+    g = torch.Generator(cuda).manual_seed(hd)
+    q, do = (torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    qp = torch.randint(0, S, (B, S), device=cuda, generator=g)
+    kp = torch.randint(5, S, (B, S), device=cuda, generator=g)
+    qp[0, 3] = 1
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, True, qp, kp)
+    out.backward(do)
+    want, lse = flash_attention.flash_attention_plain(q, k, v, True, qp,
+                                                      True, kp)
+    assert _rel(out.detach(), want) <= BWD_TOL[dtype]
+    mean = v[0].float().mean(0).repeat_interleave(H // KV, 0)
+    assert float((out.detach()[0, 3].float() - mean).abs().max()) <= \
+        BWD_TOL[dtype] * float(mean.abs().max()) + 1e-6
+    grads = flash_attention.flash_attention_bwd_plain(
+        q, k, v, want, do, lse, True, qp, kp)
+    for t, w in zip(leaves, grads):
+        assert _rel(t.grad, w) <= BWD_TOL[dtype]
+    assert float(leaves[0].grad[0, 3].abs().max()) == 0.0
+
+
+def test_lm_train_steps_on_the_card_match_the_cpu(cuda):
+    """Reduced qwen1.5-0.5b (f32), 3 Adam steps of make_train_step from one
+    state on the card and on the CPU: each step's loss within 1e-4, with
+    one forward and one backward flash_attention launch a layer a step (2
+    layers, no remat in the reduced config), and finite params."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import make_batch_arrays
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import trees
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    model = build_model(cfg)
+    states = {d: step_lib.make_train_state(model, prng.key(0), d)
+              for d in ("cpu", cuda)}
+    data = make_batch_arrays(cfg, 4, 64, 0, "cpu")
+    step = step_lib.make_train_step(model)
+    f0 = flash_attention.flash_attention.launches
+    b0 = flash_attention.flash_attention_bwd.launches
+    for s in range(3):
+        batch = {k: a[s:s + 2] for k, a in data.items()}
+        losses = {}
+        for d in states:
+            states[d], (loss, _) = step(
+                states[d], {k: a.to(d) for k, a in batch.items()})
+            losses[d] = float(loss)
+        assert abs(losses["cpu"] - losses[cuda]) <= 1e-4
+    assert flash_attention.flash_attention.launches - f0 == 3 * 2
+    assert flash_attention.flash_attention_bwd.launches - b0 == 3 * 2
+    assert all(bool(torch.isfinite(b).all())
+               for b in trees.leaves(states[cuda].params))

@@ -69,8 +69,22 @@ def test_launcher_needs_a_gpu_unless_asked_for_the_cpu():
     assert res["device"] == "cpu" and len(res["h"]) == 1
 
 
+def test_lm_launcher_needs_a_gpu_unless_asked_for_the_cpu():
+    """``--mode lm`` resolves its device as the vfl-zoo mode does: without
+    a card the default raises, and ``--device cpu`` trains."""
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    argv = ["--arch", "qwen1.5-0.5b", "--mode", "lm", "--reduced",
+            "--steps", "1", "--batch-size", "1", "--seq-len", "8"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(argv)
+    res = train.main(argv + ["--device", "cpu"])
+    assert res["device"] == "cpu" and len(res["loss"]) == 1
+
+
 @pytest.mark.parametrize("extra", [
-    ["--mode", "lm"], ["--transport", "tcp", "--data-parallel", "2"],
+    ["--transport", "tcp", "--data-parallel", "2"],
     ["--data-parallel", "2"],
     ["--resume"], ["--dropout-at", "2"], ["--dp-clip", "1"]],
     ids=lambda a: a[0])
@@ -80,6 +94,34 @@ def test_launcher_refuses_what_the_port_does_not_run(extra, capsys):
         train.parse_args(ZOO_ARGS + extra)
     assert exc.value.code == 2
     assert extra[0] in capsys.readouterr().err
+
+
+LM_BASE = ["--arch", "qwen1.5-0.5b", "--reduced", "--mode", "lm"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--fused"], ["--codec", "bf16"], ["--dp-epsilon", "8", "--dp-clip", "1"],
+    ["--serve", "4"], ["--transport", "tcp"],
+    ["--mode", "vfl-zoo", "--opt-state-dtype", "bf16"],
+    ["--mode", "vfl-zoo", "--schedule", "wsd"],
+    ["--schedule", "wsd", "--opt-state-dtype", "bf16"]],
+    ids=["fused", "codec", "dp-epsilon", "serve", "tcp",
+         "opt-state-dtype-in-vfl-zoo", "schedule-in-vfl-zoo", "lm-flags"])
+def test_lm_parse_rules_are_the_references(extra, capsys):
+    """``--mode lm``'s coherence rules: each combination exits as the
+    reference's parser does, with its message, before anything is built
+    (the reference ignores --schedule under vfl-zoo, and so does the
+    port)."""
+    from repro.launch import train as ref_train
+    from repro_torch.launch import train
+    got = []
+    for parse in (ref_train.parse_args, train.parse_args):
+        try:
+            args = parse(LM_BASE + extra)
+            got.append((0, vars(args)["mode"]))
+        except SystemExit as exc:
+            got.append((exc.code, capsys.readouterr().err.splitlines()[-1]))
+    assert got[1] == got[0]
 
 
 @pytest.mark.parametrize("extra,needle", [

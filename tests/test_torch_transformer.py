@@ -248,14 +248,26 @@ def test_attention_forward_and_loss(arch):
 
 
 def test_forward_refuses_what_the_kernel_does_not_compute():
-    """Explicit positions raise (the kernel masks by position 0..S-1); a
-    sliding window takes the windowed attention, held against the
-    reference's forward (window 4 over S 24, so the band cuts)."""
+    """Explicit positions (RoPE and the causal mask by position, repeats
+    and out of order, so the mask is not the index's) held against the
+    reference's forward, and unlike the forward without them; a sliding
+    window takes the windowed attention, held against the reference's
+    forward (window 4 over S 24, so the band cuts)."""
     model = build_model(get_config("qwen1.5-0.5b", reduced=True))
-    params = model.init(prng.key(0), "cpu")
-    _, tb = _batch(model.cfg, 1, 8, 0)
-    with pytest.raises(NotImplementedError, match="positions"):
-        model.forward(params, dict(tb, positions=torch.zeros(1, 8)))
+    ref_pos_model = ref_build_model(ref_get_config("qwen1.5-0.5b",
+                                                   reduced=True))
+    pos_params = ref_pos_model.init(jax.random.key(2))
+    tpos_params = params_from_numpy(_np_tree(pos_params), "cpu")
+    jb, tb = _batch(model.cfg, 2, 16, 0)
+    pos = np.random.default_rng(5).integers(0, 24, (2, 16)).astype(np.int32)
+    got, _ = model.forward(tpos_params,
+                           dict(tb, positions=torch.from_numpy(pos)))
+    want, _ = ref_pos_model.forward(pos_params,
+                                    dict(jb, positions=jnp.asarray(pos)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_TOL,
+                               rtol=FWD_TOL)
+    index, _ = model.forward(tpos_params, tb)
+    assert not np.allclose(got.numpy(), index.numpy(), atol=FWD_TOL)
     ref_model = ref_build_model(ref_get_config(
         "qwen1.5-0.5b", reduced=True).replace(sliding_window=4))
     windowed = build_model(model.cfg.replace(sliding_window=4))
