@@ -330,11 +330,16 @@ def ops_bound(nbytes, int_ops, f32_ops, int_rate):
 
 
 # (library, kernel, SASS instructions each of its functions must hold):
-# HGMMA (wgmma) and UTMALDG (TMA loads) in the bf16 flash_attention kernel,
-# HGMMA in the f32 one (3xTF32, no TMA) and in dual_matmul's
+# HGMMA (wgmma) and UTMALDG (TMA loads) in the bf16 flash_attention kernel
+# and in both passes of the bf16 backward, HGMMA in the f32 forward (3xTF32,
+# no TMA) and in dual_matmul's; the f32 backward runs on the CUDA cores
 TENSOR_CORE_SASS = (
     ("flash_attention", "flash_attention_bf16_kernel", ("HGMMA", "UTMALDG")),
     ("flash_attention", "flash_attention_f32_kernel", ("HGMMA",)),
+    ("flash_attention_bwd", "flash_attention_bwd_bf16_dq_kernel",
+     ("HGMMA", "UTMALDG")),
+    ("flash_attention_bwd", "flash_attention_bwd_bf16_dkdv_kernel",
+     ("HGMMA", "UTMALDG")),
     ("dual_matmul", "dual_matmul_kernel", ("HGMMA",)))
 
 
@@ -3382,7 +3387,9 @@ def flash_bwd_phase(dev):
     positions, rows that see no key have the plain version's lse below
     MASKED_LSE and the mean of v. Times: one call, traced, the plain
     version, and the backward of scaled_dot_product_attention through
-    autograd (the yardstick; positions have no SDPA counterpart)."""
+    autograd (the yardstick); with positions, SDPA takes an additive float
+    mask of -1e30 where kv_pos > q_pos, under which a row that sees no key
+    is the mean of v, as in the reference."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3440,18 +3447,21 @@ def flash_bwd_phase(dev):
         kern = time_ms(kernel)
         plain = time_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, do, lse, causal, qp, kp))
-        lib = traced_lib = None
-        if not blind:
-            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v)]
-            sdpa = F.scaled_dot_product_attention(
-                *leaves, is_causal=causal, enable_gqa=KV != H)
-            do_t = do.transpose(1, 2)
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+        mask = None
+        if blind:
+            mask = torch.where(kp[:, None, None, :] > qp[:, None, :, None],
+                               torch.tensor(-1e30, dtype=q.dtype, device=dev),
+                               torch.tensor(0.0, dtype=q.dtype, device=dev))
+        sdpa = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=causal and not blind,
+            enable_gqa=KV != H)
+        do_t = do.transpose(1, 2)
 
-            def library():
-                return torch.autograd.grad(sdpa, leaves, do_t,
-                                           retain_graph=True)
-            lib, traced_lib = time_ms(library), traced_ms(library)
+        def library():
+            return torch.autograd.grad(sdpa, leaves, do_t, retain_graph=True)
+        lib, traced_lib = time_ms(library), traced_ms(library)
         t_bytes, t_ops, t_tc = flash_bwd_bound(B, S, H, KV, hd,
                                                q.element_size(), causal)
         row = {"kernel": "flash_attention_bwd", "shape": [B, S, H, KV, hd],
@@ -3467,7 +3477,7 @@ def flash_bwd_phase(dev):
         log(json.dumps(row))
         if (B, S, H, KV, hd, dt) == (4, 2048, 16, 16, 64, "bf16"):
             timed = row
-        del q, k, v, do, out, lse, got, again, want
+        del q, k, v, do, out, lse, got, again, want, leaves, sdpa, mask
         torch.cuda.empty_cache()
     return timed, worst
 
@@ -3686,8 +3696,7 @@ PORT_KERNEL_FUNCTIONS = {"defended_encode": ("cast_kernel", "int8_kernel"),
                          "dual_matmul": ("dual_matmul",),
                          "flash_attention": ("flash_attention_f32_kernel",
                                              "flash_attention_bf16_kernel"),
-                         "flash_attention_bwd": ("bwd_dkdv_kernel",
-                                                 "bwd_dq_kernel"),
+                         "flash_attention_bwd": ("flash_attention_bwd_",),
                          "prng_draw": ("draw_kernel",)}
 
 

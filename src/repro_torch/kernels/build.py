@@ -149,9 +149,11 @@ _SIGNATURES = {
     "flash_attention_bwd": {
         # q, k, v, o, do, lse, q and kv positions (or null), dq, dk, dv, B,
         # S, H, KV, hd, scale, causal, stream
-        f"flash_attention_bwd_{t}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _F, _I, _P)
-        for t in ("f32", "bf16")
+        "flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        # the same with the (B, H, S, 4) f32 scratch after dv
+        "flash_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "dual_matmul": {
         # x, ldx, w, u, mu, y0, y1, M, N, K, stream

@@ -189,3 +189,105 @@ def test_lse_is_the_row_logsumexp_of_the_forwards_scores():
     got = fa.flash_attention_bwd(q, k, v, out, do, lse, True)
     want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# The bf16 CUDA backward's numerics (csrc/flash_attention_bwd.cu, the
+# tensor-core kernels), emulated in plain torch f32: bf16 inputs; s = q.k
+# and dp = dO.v with exact products and f32 sums; D = dO . o from the bf16
+# output; p = 2^(s c + off) with c = scale log2(e) and off = -lse log2(e)
+# in f32 (one rounding, the kernel's fma; -inf for a row that saw no key);
+# masked keys p = 0; ds = p (dp - D); p (plus 1/S on a row that saw no
+# key) and ds rounded once to bf16 before the three second-stage products;
+# dq and dk times scale; every output rounded once to bf16.
+def _bf16_bwd_emulation(q, k, v, o, do, lse, causal, positions=None,
+                        kv_positions=None):
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = np.float32(1.0 / np.sqrt(hd))
+    log2e = np.float32(np.log2(np.e))
+    c = float(np.float32(scale * log2e))
+    qf = q.float().transpose(1, 2)                          # (B, H, S, hd)
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    s = qf @ kf.transpose(-1, -2)
+    dp = dof @ vf.transpose(-1, -2)
+    D = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
+    blind = (lse < fa.MASKED_LSE)[..., None]
+    off = torch.where(blind, torch.tensor(-np.inf),
+                      lse[..., None] * torch.tensor(-log2e))
+    p = torch.exp2((s.double() * c + off.double()).float())
+    if causal:
+        if positions is None:
+            keep = torch.ones(S, S, dtype=torch.bool).tril()
+        else:
+            kp = positions if kv_positions is None else kv_positions
+            keep = (kp[:, None, :] <= positions[:, :, None])[:, None]
+        p = torch.where(keep, p, torch.zeros(()))
+    ds = (p * (dp - D)).bfloat16().float()
+    p_dv = (p + torch.where(blind, torch.tensor(np.float32(1.0) / S),
+                            torch.zeros(()))).bfloat16().float()
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    dv = p_dv.transpose(-1, -2) @ dof
+    grads = [g.transpose(1, 2) for g in (dq, dk, dv)]       # (B, S, H, hd)
+    for i in (1, 2):
+        grads[i] = grads[i].reshape(B, S, H // G, G, hd).sum(3)
+    return [g.bfloat16() for g in grads]
+
+
+# (B, S, H, KV, hd, causal, positions): causal GQA 8/2 and full at hd 64
+# and 128, S 512 and 1024; a ragged S of 200; explicit q and kv positions
+# with rows that see no key
+BF16_BWD_CASES = [(1, 512, 8, 2, 64, True, False),
+                  (1, 1024, 8, 2, 64, True, False),
+                  (1, 512, 8, 2, 128, False, False),
+                  (1, 1024, 4, 4, 128, True, False),
+                  (2, 200, 4, 2, 64, True, False),
+                  (2, 200, 4, 2, 128, False, False),
+                  (2, 256, 4, 2, 128, True, True)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,positions", BF16_BWD_CASES)
+def test_bf16_backward_kernel_numerics_within_the_card_tolerance(
+        B, S, H, KV, hd, causal, positions):
+    """p and ds rounded once to bf16 for the second-stage products keep
+    each gradient within 2e-2 of its largest magnitude of the plain
+    backward (the card check's tolerance, chip_smoke.FLASH_BWD_TOL and
+    tests/test_torch_gpu.py's BWD_TOL). Measured here: MARGIN."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _inputs(B, S, H, KV, hd, S + hd))
+    qp = kp = None
+    if positions:
+        rng = np.random.default_rng(7)
+        qp = torch.from_numpy(rng.integers(0, S, (B, S)))
+        kp = torch.from_numpy(rng.integers(5, S, (B, S)))
+        qp[0, :3] = 2
+    o, lse = fa.flash_attention_plain(q, k, v, causal, qp, True, kp)
+    if positions:
+        assert bool((lse < fa.MASKED_LSE).any())
+    got = _bf16_bwd_emulation(q, k, v, o, do, lse, causal, qp, kp)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal, qp, kp)
+    for g, w in zip(got, want):
+        rel = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        print(rel)
+        assert rel <= TOL["bf16"]
+
+
+def test_the_backward_library_hashes_its_header_and_binds_its_entries():
+    """The backward's source includes csrc/hopper.cuh, which the build's
+    hash covers; each C entry takes as many arguments as its ctypes
+    signature declares (the bf16 entry one more: the records' scratch)."""
+    import re
+
+    from repro_torch.kernels import build
+    assert [p.name for p in build.sources("flash_attention_bwd")] == \
+        ["flash_attention_bwd.cu", "hopper.cuh"]
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    sigs = build._SIGNATURES["flash_attention_bwd"]
+    for fn, argtypes in sigs.items():
+        params = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src).group(1)
+        assert len(params.split(",")) == len(argtypes)
+    assert len(sigs["flash_attention_bwd_bf16"]) == \
+        len(sigs["flash_attention_bwd_f32"]) + 1

@@ -354,9 +354,10 @@ def test_flash_attention_kernel_vs_plain(cuda, B, S, H, KV, hd, causal,
 
 
 def test_flash_attention_kernels_run_on_the_tensor_cores(cuda):
-    """Each of the built library's kernel functions (bf16 and f32, hd 64
-    and 128, with and without positions) holds HGMMA (wgmma) instructions
-    in its own SASS."""
+    """Each of the built forward library's kernel functions (bf16 and f32,
+    hd 64 and 128, with and without positions) holds HGMMA (wgmma)
+    instructions in its own SASS; each bf16 function of the backward's
+    two passes holds HGMMA and UTMALDG (TMA loads)."""
     import shutil
     import subprocess
     from pathlib import Path
@@ -366,17 +367,27 @@ def test_flash_attention_kernels_run_on_the_tensor_cores(cuda):
         Path(build._nvcc()).parent / "cuobjdump")
     if not Path(cuobjdump).exists():
         pytest.skip("needs cuobjdump to read the library's SASS")
-    build.load("flash_attention")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(build._target("flash_attention"))],
-                          capture_output=True, text=True, check=True).stdout
-    funcs = {chunk.split("\n", 1)[0]: chunk
-             for chunk in sass.split("Function : ")[1:]}
-    for kernel in ("flash_attention_f32_kernel",
-                   "flash_attention_bf16_kernel"):
+
+    def functions(lib):
+        build.load(lib)
+        sass = subprocess.run([cuobjdump, "-sass", str(build._target(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        return {chunk.split("\n", 1)[0]: chunk
+                for chunk in sass.split("Function : ")[1:]}
+
+    for lib, kernel, ops in (
+            ("flash_attention", "flash_attention_f32_kernel", ("HGMMA",)),
+            ("flash_attention", "flash_attention_bf16_kernel", ("HGMMA",)),
+            ("flash_attention_bwd", "flash_attention_bwd_bf16_dq_kernel",
+             ("HGMMA", "UTMALDG")),
+            ("flash_attention_bwd", "flash_attention_bwd_bf16_dkdv_kernel",
+             ("HGMMA", "UTMALDG"))):
         # hd 64 and 128, each without and with explicit positions
-        mine = [text for name, text in funcs.items() if kernel in name]
-        assert len(mine) == 4 and all("HGMMA" in text for text in mine)
+        mine = [text for name, text in functions(lib).items()
+                if kernel in name]
+        assert len(mine) == 4 and all(op in text for text in mine
+                                      for op in ops)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -753,10 +764,12 @@ def _rel(got, want) -> float:
                  / want.float().abs().max())
 
 
+# (1, 900, ...): the last kv block's second consumer warpgroup holds no row
 @pytest.mark.parametrize("B,S,H,KV,hd", [(2, 256, 4, 4, 64),
                                          (1, 200, 8, 2, 128),
                                          (2, 129, 4, 2, 64),
-                                         (1, 1000, 8, 2, 128)])
+                                         (1, 1000, 8, 2, 128),
+                                         (1, 900, 4, 2, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_kernel_vs_plain(cuda, B, S, H, KV, hd,
@@ -785,6 +798,26 @@ def test_flash_attention_backward_kernel_vs_plain(cuda, B, S, H, KV, hd,
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b) and a.dtype == dtype
         assert _rel(a, w) <= BWD_TOL[dtype]
+
+
+def test_flash_attention_bwd_bf16_raises_on_a_misaligned_operand(cuda):
+    """The bf16 backward's TMA needs 16-byte aligned operands: a contiguous
+    view that starts 2 bytes into its storage is refused by the kernel's
+    launcher, and the wrapper raises, launching nothing and falling back
+    to nothing."""
+    B, S, H, hd = 1, 64, 2, 64
+    g = torch.Generator(cuda).manual_seed(11)
+    q, k, v, do = (torch.randn(B, S, H, hd, device=cuda, generator=g)
+                   .bfloat16() for _ in range(4))
+    out, lse = flash_attention._launch_fwd(q, k, v, True, None, True)
+    odd = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    odd = odd[1:].view(q.shape)
+    odd.copy_(do)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    n0 = flash_attention.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention.flash_attention_bwd(q, k, v, out, odd, lse, True)
+    assert flash_attention.flash_attention_bwd.launches == n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
