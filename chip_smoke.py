@@ -60,12 +60,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``flash_attention_bwd_plain`` from the same forward output and lse
    (1e-4 relative in f32, 2e-2 in bf16), two calls bitwise, at the
    vfl-zoo shape in bf16, qwen3-moe's GQA, whisper's encoder, the reduced
-   f32 shape and explicit q and kv positions with rows that see no key
-   (the mean of v); the forward with lse bitwise the forward-only launch,
-   its lse the plain row logsumexp within 1e-5; one call and traced
-   times, the bound (5 products, at the bf16 tensor cores' or the f32
-   CUDA cores' rate) and the backward of scaled_dot_product_attention
-   through autograd as its yardstick.
+   f32 shape, the lm shape in f32, an f32 GQA case at hd 128 and explicit
+   q and kv positions with rows that see no key (the mean of v); the
+   forward with lse bitwise the forward-only launch, its lse the plain row
+   logsumexp within 1e-5; one call and traced times, the bound (5
+   products, at the bf16 tensor cores' or the f32 CUDA cores' rate; in
+   f32 also as 3xTF32 at the TF32 rate) and the backward of
+   scaled_dot_product_attention through autograd as its yardstick, with
+   the backend it ran. Both types of the backward run on the tensor cores
+   (``HGMMA`` in each of their SASS functions, ``UTMALDG`` too in bf16),
+   and the build fails the smoke if any function of the backward's library
+   spills.
 3. Main path: the defended AsyREVEL party round (Algorithm 1,
    ``HostAsyncTrainer.run_serial``) on the paper FCN at D7 width: 8 parties
    x 98 features, towers 98->128->1, server 8->10, n = 60000, batch 2048,
@@ -268,6 +273,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -331,8 +337,9 @@ def ops_bound(nbytes, int_ops, f32_ops, int_rate):
 
 # (library, kernel, SASS instructions each of its functions must hold):
 # HGMMA (wgmma) and UTMALDG (TMA loads) in the bf16 flash_attention kernel
-# and in both passes of the bf16 backward, HGMMA in the f32 forward (3xTF32,
-# no TMA) and in dual_matmul's; the f32 backward runs on the CUDA cores
+# and in both passes of the bf16 backward; HGMMA in the f32 forward and in
+# both passes of the f32 backward (3xTF32, the producer splits and stores
+# every operand, no TMA), and in dual_matmul's
 TENSOR_CORE_SASS = (
     ("flash_attention", "flash_attention_bf16_kernel", ("HGMMA", "UTMALDG")),
     ("flash_attention", "flash_attention_f32_kernel", ("HGMMA",)),
@@ -340,7 +347,46 @@ TENSOR_CORE_SASS = (
      ("HGMMA", "UTMALDG")),
     ("flash_attention_bwd", "flash_attention_bwd_bf16_dkdv_kernel",
      ("HGMMA", "UTMALDG")),
+    ("flash_attention_bwd", "flash_attention_bwd_f32_dq_kernel", ("HGMMA",)),
+    ("flash_attention_bwd", "flash_attention_bwd_f32_dkdv_kernel",
+     ("HGMMA",)),
     ("dual_matmul", "dual_matmul_kernel", ("HGMMA",)))
+
+
+_PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_functions(text) -> dict:
+    """{function: [registers, spill store bytes, spill load bytes]} from
+    the ``-Xptxas -v`` lines of a build's output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [0, 0, 0])
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = _PTXAS_REGS.search(line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return out
+
+
+def bwd_function(mangled) -> str | None:
+    """"f32 dq hd64 pos0" for an attention backward kernel's mangled name
+    (dtype, pass, head dim, explicit positions), else None."""
+    m = re.search(r"flash_attention_bwd_(f32|bf16)_(dq|dkdv)_kernelILi(\d+)"
+                  r"ELb(\d)E", mangled)
+    return None if m is None else \
+        f"{m.group(1)} {m.group(2)} hd{m.group(3)} pos{m.group(4)}"
 
 
 def sass_functions(name) -> dict:
@@ -352,6 +398,24 @@ def sass_functions(name) -> dict:
                           capture_output=True, text=True, check=True).stdout
     return {chunk.split("\n", 1)[0].strip(): chunk
             for chunk in sass.split("Function : ")[1:]}
+
+
+def backward_spills():
+    """Every function of the attention backward's library (both passes,
+    both types, hd 64 and 128, with and without positions) builds with 0
+    spill bytes, as ptxas reported them when it was built (the build's
+    saved output); logs each one's registers."""
+    from repro_torch.kernels import build
+    name = "flash_attention_bwd"
+    text = build.build_output(name)
+    funcs = {bwd_function(fn) or fn: regs
+             for fn, regs in ptxas_functions(text).items()}
+    log(f"[ptxas {name}] registers, spill store and load bytes: "
+        f"{json.dumps(funcs)}")
+    spilled = {fn: regs for fn, regs in funcs.items() if regs[1] or regs[2]}
+    if len(funcs) < 16 or spilled:
+        raise AssertionError(f"{name}: {len(funcs)} functions, spilling "
+                             f"{spilled}")
 
 
 def draw_sass():
@@ -377,6 +441,30 @@ def tensor_core_route():
             if not all(counts.values()):
                 raise AssertionError(f"{fn}'s SASS lacks the tensor-core "
                                      f"route: {counts}")
+
+
+def sdpa_backend(fn) -> dict:
+    """Which of PyTorch's scaled_dot_product_attention backends fn's
+    kernels come from, read off their names in a profiler trace of one
+    call: "flash" (``flash_bwd``/``flash_fwd``), "efficient" (CUTLASS's
+    ``fmha_cutlass``), "cudnn", or "math" (none of those); with the names
+    of its three longest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.count),
+                    key=lambda e: -e.self_device_time_total)
+    names = " ".join(e.key for e in events).lower()
+    backend = ("flash" if "flash_bwd" in names or "flash_fwd" in names
+               else "efficient" if "fmha_cutlass" in names
+               else "cudnn" if "cudnn" in names else "math")
+    return {"backend": backend, "kernels": [e.key[:80] for e in events[:3]]}
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:
@@ -3180,11 +3268,21 @@ LM_TRAIN_TOL = 1e-4
 LM_TRAIN_CHECK = (2, 32, 3)
 
 
+def flash_layers(cfg):
+    """Layers whose self-attention runs the flash_attention kernel
+    (models/attention.py ``attn_apply``): every decoder layer but those of
+    an ssm (no attention) or under a causal sliding window (the windowed
+    path), and every encoder layer (full attention, no window)."""
+    dec = 0 if cfg.family == "ssm" or cfg.sliding_window is not None \
+        else cfg.num_layers
+    return dec + (cfg.num_encoder_layers if cfg.enc_dec else 0)
+
+
 def lm_train_launches(cfg, steps):
     """flash_attention launches of ``steps`` first-order steps: a forward a
-    layer (and an encoder layer), another where remat recomputes the layer
-    in the backward, and a backward a layer. Returns (forward, backward)."""
-    layers = cfg.num_layers + (cfg.num_encoder_layers if cfg.enc_dec else 0)
+    layer (``flash_layers``), another where remat recomputes the layer in
+    the backward, and a backward a layer. Returns (forward, backward)."""
+    layers = flash_layers(cfg)
     return layers * (2 if cfg.remat else 1) * steps, layers * steps
 
 
@@ -3277,10 +3375,14 @@ def lm_train_checks(dev):
     the first step every gradient leaf within LM_TRAIN_TOL of its largest
     magnitude on the CPU; then qwen1.5-0.5b with explicit positions (out
     of order, repeats), a loss mask and the chunked loss. Returns
-    {arch: the largest loss gap and relative gradient gap}."""
+    {arch: the largest loss gap and relative gradient gap, and the f32
+    backward kernel's launches on the card: exactly one a layer of
+    ``flash_layers`` in each of the steps + 1 backward passes (the gradient
+    check's and the steps')}."""
     import numpy as np
     import torch
     from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps as step_lib
     from repro_torch.launch.train import make_batch_arrays
     from repro_torch.models.model import build_model
@@ -3311,6 +3413,7 @@ def lm_train_checks(dev):
         step = step_lib.make_train_step(model)
         state = states[dev]
         gaps, grad_gap = [], 0.0
+        bwd0 = fa.flash_attention_bwd.launches
         for s in range(steps):
             batch = {k: a[s * B:(s + 1) * B] for k, a in data.items()}
             on_cpu = trees.tree_map(lambda a: a.cpu(),
@@ -3326,7 +3429,14 @@ def lm_train_checks(dev):
         if not (max(gaps) <= LM_TRAIN_TOL and grad_gap <= LM_TRAIN_TOL):
             raise AssertionError(f"{name}: card vs CPU loss gaps {gaps}, "
                                  f"gradient gap {grad_gap}")
-        out[name] = {"loss_gaps": gaps, "grad_rel_gap": grad_gap}
+        bwd = fa.flash_attention_bwd.launches - bwd0
+        bwd_want = flash_layers(cfg) * (steps + 1)
+        if dev.type == "cuda" and bwd != bwd_want:
+            raise AssertionError(f"{name}: {bwd} backward launches in "
+                                 f"{steps + 1} backward passes, not "
+                                 f"{bwd_want}")
+        out[name] = {"loss_gaps": gaps, "grad_rel_gap": grad_gap,
+                     "bwd_launches": bwd}
     log(f"[lm_train] reduced, card vs CPU, {steps} Adam steps each from "
         f"one state: {json.dumps(out)}")
     return out
@@ -3353,14 +3463,17 @@ def lm_grad_gap(model, params_dev, params_cpu, batch, dev):
 # the backward kernel's rows (B, S, H, KV, hd, dtype, causal, blind): the
 # vfl-zoo and lm shape in bf16 (qwen1.5-0.5b, batch 4, S 2048), qwen3-moe's
 # GQA 32/4 at hd 128, whisper's encoder (full, S 1500), the reduced f32
-# shape (2 layers of d 256: 4 heads of 64, batch 2, S 32), and explicit q
-# and kv positions with rows that see no key
+# shape (2 layers of d 256: 4 heads of 64, batch 2, S 32), explicit q and
+# kv positions with rows that see no key, the lm shape in f32 and an f32
+# GQA case at hd 128 (16/4 heads, S 1024)
 FLASH_BWD_CASES = [(4, 2048, 16, 16, 64, "bf16", True, False),
                    (4, 2048, 32, 4, 128, "bf16", True, False),
                    (4, 1500, 12, 12, 64, "bf16", False, False),
                    (2, 32, 4, 4, 64, "f32", True, False),
                    (2, 1000, 8, 4, 64, "f32", True, True),
-                   (2, 1000, 8, 4, 128, "bf16", True, True)]
+                   (2, 1000, 8, 4, 128, "bf16", True, True),
+                   (4, 2048, 16, 16, 64, "f32", True, False),
+                   (2, 1024, 16, 4, 128, "f32", True, False)]
 # max |kernel - plain| over the plain gradient's largest magnitude
 FLASH_BWD_TOL = {"f32": 1e-4, "bf16": 2e-2}
 
@@ -3370,7 +3483,8 @@ def flash_bwd_bound(B, S, H, KV, hd, esize, causal):
     backward: q, k, v, o, dO and lse read once, dq, dk, dv written once;
     5 products (q.k, dO.v, p^T dO, ds k, ds^T q) over the pairs the mask
     keeps, twice the forward's 2; bf16 at the tensor cores' rate, f32 at
-    the CUDA cores' (and 3xTF32 on the tensor cores beside it)."""
+    the CUDA cores' (and, the f32 kernel's own, 3xTF32 on the tensor cores
+    beside it)."""
     nbytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * esize \
         + 4 * B * H * S
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -3387,9 +3501,10 @@ def flash_bwd_phase(dev):
     positions, rows that see no key have the plain version's lse below
     MASKED_LSE and the mean of v. Times: one call, traced, the plain
     version, and the backward of scaled_dot_product_attention through
-    autograd (the yardstick); with positions, SDPA takes an additive float
-    mask of -1e30 where kv_pos > q_pos, under which a row that sees no key
-    is the mean of v, as in the reference."""
+    autograd (the yardstick), and the SDPA backend it ran (``sdpa_backend``);
+    with positions, SDPA takes an additive float mask of -1e30 where kv_pos
+    > q_pos, under which a row that sees no key is the mean of v, as in the
+    reference."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3470,10 +3585,16 @@ def flash_bwd_phase(dev):
                "tol": FLASH_BWD_TOL[dt], "kernel_ms": kern,
                "kernel_traced_ms": traced_ms(kernel), "plain_ms": plain,
                "library_ms": lib, "library_traced_ms": traced_lib,
+               "library_backend": sdpa_backend(library)["backend"],
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         if t_tc is not None:
-            row["tensor_core_bound_ms"] = max(t_bytes, t_tc) * 1e3
+            # as the f32 forward's rows: the kernel's own (3xTF32) bound,
+            # the CUDA cores' beside it
+            row["cuda_core_bound_ms"] = row["bound_ms"]
+            row["cuda_core_bound_by"] = row["bound_by"]
+            row["bound_ms"] = max(t_bytes, t_tc) * 1e3
+            row["bound_by"] = "bytes" if t_bytes >= t_tc else "operations"
         log(json.dumps(row))
         if (B, S, H, KV, hd, dt) == (4, 2048, 16, 16, 64, "bf16"):
             timed = row
@@ -4053,11 +4174,12 @@ def main() -> int:
     t = time.perf_counter()
     built = build.build_all()
     log(f"[build] {built} wall {time.perf_counter() - t:.1f}s")
-    for name, (_, text) in build.BUILD_LOG.items():
-        for line in text.splitlines():
+    for name in build.KERNELS:
+        for line in build.build_output(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
     tensor_core_route()
+    backward_spills()
     draw_sass()
 
     if "--profile" in sys.argv[1:]:

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu``, with the local headers it includes (such as
 ``csrc/prng.cuh``), is compiled by ``nvcc`` on its own into a shared
 library with a plain C interface, ``build/kernels/lib<name>-<hash>.so``
-at the repository root, and loaded with ``ctypes``. Nothing is built when a module is
+at the repository root (nvcc's output, ptxas's register and spill report
+among it, beside it as ``lib<name>-<hash>.log``), and loaded with
+``ctypes``. Nothing is built when a module is
 imported: the first launch builds what it needs, and ``build_all``
 starts one ``nvcc`` per source, all at once.
 
@@ -88,7 +90,7 @@ def _target(name: str) -> Path:
 
 def _start(name: str):
     out = _target(name)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -104,7 +106,17 @@ def _finish(name: str, job) -> None:
     BUILD_LOG[name] = (time.perf_counter() - t0, stdout + stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{stdout}{stderr}")
+    log = tmp.with_suffix(".log")
+    log.write_text(stdout + stderr)
+    os.replace(log, out.with_suffix(".log"))
     os.replace(tmp, out)
+
+
+def build_output(name: str) -> str:
+    """nvcc's output for the built library of kernel ``name`` (built first
+    if needed), saved beside it when it was compiled."""
+    build_all((name,))
+    return _target(name).with_suffix(".log").read_text()
 
 
 def build_all(names=KERNELS) -> dict:
@@ -147,13 +159,12 @@ _SIGNATURES = {
         for t in ("f32", "bf16")
     },
     "flash_attention_bwd": {
-        # q, k, v, o, do, lse, q and kv positions (or null), dq, dk, dv, B,
-        # S, H, KV, hd, scale, causal, stream
-        "flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _I, _I, _F, _I, _P),
-        # the same with the (B, H, S, 4) f32 scratch after dv
-        "flash_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, o, do, lse, q and kv positions (or null), dq, dk, dv, the
+        # (B, H, S, 4) f32 scratch of the q rows' records, B, S, H, KV, hd,
+        # scale, causal, stream
+        f"flash_attention_bwd_{t}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
+        for t in ("f32", "bf16")
     },
     "dual_matmul": {
         # x, ldx, w, u, mu, y0, y1, M, N, K, stream

@@ -31,24 +31,86 @@
 // against 6 x 16.8 MB of bf16 operands read or written (0.030 ms at 3.35
 // TB/s).
 //
-// f32 (`flash_attention_bwd_f32_*`): the simple design, on the CUDA cores
-// (1.28 ms for the 5 products at their 67 TFLOP/s).
-//  - dkdv: one block of 256 threads per (b, kv head, 64-row kv tile). It
-//    keeps its k and v tile in shared memory and loops over the query heads
-//    of its kv head and over the q tiles that can see the tile (from the
-//    diagonal on, under the causal index mask; all of them with positions),
-//    loading q and dO and computing D_i itself, and sums dk and dv in
-//    registers in that fixed order.
-//  - dq: one block per (b, h, 64-row q tile), looping over the kv tiles the
-//    tile can see, summing dq in registers.
-// Each tile product runs as 8 x 2 outputs a thread (rows ty + 8a, columns
-// tx + 32b): row operands are read by all of a warp at one address
-// (broadcast), column operands at consecutive addresses; rows of q, dO, k
-// and v lie in shared memory with a stride of hd + 1 floats, so a column
-// read is free of bank conflicts. Each multiply-add takes about one
-// shared-memory read, so shared memory, not the FMA units, sets its pace.
-// Rounding: every f32 operation is an __f*_rn intrinsic or expf / __fdiv_rn
-// (built with --fmad=false too).
+// f32 (`flash_attention_bwd_f32_*`): the same two passes on Hopper's tensor
+// cores as 3xTF32, in the frame of the bf16 backward below and with the
+// arithmetic of the f32 forward (csrc/flash_attention.cu). The same records
+// (a (B, H, S, 4) f32 scratch from the wrapper) carry -lse log2(e), D and
+// each q row's position from the dq pass to the dk/dv pass. At the lm shape
+// in f32 the 5 products take 0.521 ms as 3xTF32 at 495 TFLOP/s (1.28 ms at
+// the CUDA cores' 67 TFLOP/s).
+//  1. Splitting. Each f32 operand value a becomes hi = tf32(a) and lo =
+//     tf32(a - hi), rounded as cvt.rna rounds (hopper.cuh `split`); each
+//     product is hi.hi + hi.lo + lo.hi on `wgmma.m64nNk8.f32.tf32.tf32`,
+//     lo.lo dropped. One tf32 product misses the 1e-4 check by 6-10x
+//     (tests/test_torch_flash_grad_f32.py).
+//  2. Operand layout. tf32 `wgmma` takes K-major operands only. The dq pass
+//     runs s = q.k^T and dp = dO.v^T on q, k, dO and v as stored (`Rows`),
+//     and dq += ds.k on k^T (`Cols`); the dk/dv pass runs s^T = k.q^T and
+//     dp^T = v.dO^T as stored, dv += p^T.dO on dO^T and dk += ds^T.q on
+//     q^T. ds, p^T and ds^T go from the accumulators to register A
+//     fragments with no trip through shared memory (`split_frags`): each
+//     transposed operand stores the rows of each k8 step in the order the
+//     fragments hold the accumulator's columns, as the forward stores v^T.
+//  3. Truncating sums. The tensor cores truncate their sums, so s, dp, s^T
+//     and dp^T run each 32-deep chunk of hd into fresh accumulators, added
+//     with __fadd_rn; each tile's second-stage products (dq over a kv tile,
+//     dv and dk over a q tile) run into fresh accumulators added into the
+//     f32 totals with __fadd_rn. The CPU emulation keeps every gradient
+//     within 3.1e-6 of its largest (32x inside 1e-4); one accumulator over
+//     a kv head's q tiles spends more than a quarter of it (5.3e-5 at 4096
+//     rows, hd 128).
+//  4. Shared memory. Every operand is held split, hi and lo, so a 64-row
+//     tile at hd 64 takes 32 KB. The producer splits in registers, so there
+//     is no pre-pass and no extra launch; the budget is met with narrower
+//     tiles where it must be:
+//     - dq pass: q and dO of the block's rows stay (128 KB); one set of k,
+//       v and k^T (96 KB) with its own full and empty mbarriers each, so
+//       the producer stores tile i + 1's k and v while the consumers finish
+//       tile i. hd 64: two consumer warpgroups, 128 q rows, 64-row kv
+//       tiles; hd 128: one consumer warpgroup, 64 q rows, 32-row kv tiles.
+//       225 KB either way.
+//     - dk/dv pass: 64 kv rows a block, k and v held split (64 KB at hd
+//       64, 128 at hd 128) for one consumer warpgroup, which takes the q
+//       tiles of each query head in turn through one slot of q and dO (set
+//       A) and q^T and dO^T (set B), released apart, so the next tile's set
+//       A refills while a tile's second stage runs. hd 64: 32-row q tiles
+//       and two raw stages (below), 162 KB; hd 128: 16-row q tiles (q^T
+//       half fills its rows), 225 KB. 64-row blocks keep the positions
+//       shape's dk/dv grid at 128 blocks. A second consumer warpgroup at hd
+//       64, sharing k and v and taking every other q tile, was no faster
+//       (the producer's loads set the pace, item 5).
+//  5. The producer. One warpgroup loads (16-byte loads for the row layout,
+//     4-byte ones, a warp's 128 contiguous bytes, for the transposed one),
+//     splits each value with two integer operations and a subtraction, and
+//     stores conflict-free; each operand's loads are issued before it waits
+//     for a buffer. In the dk/dv pass it has a q tile's q and dO to split
+//     twice, both layouts, per 7 tile products, and there its loads set the
+//     pace. So at hd 64 it stages each tile's q and dO rows raw, by
+//     cp.async a tile ahead into one of two stages, and splits both layouts
+//     from shared memory; the records come a tile ahead in registers
+//     (benchmarks/torch_flash_bwd_variants.py times it against
+//     f32_no_staging).
+//  6. Registers. The dq pass's block at hd 64 is compiled at 168 a thread;
+//     setmaxnreg gives its two consumer warpgroups 216 of what the producer
+//     gives up (it keeps 72, and loads in batches that fit); one consumer
+//     warpgroup (the dq pass at hd 128, the dk/dv pass) has the 255 of a
+//     256-thread block. The dq pass runs s and then dp (both in flight
+//     would not fit beside dq at hd 64); the dk/dv pass runs dv's and dk's
+//     second-stage products one after the other into one set of fresh
+//     accumulators (at hd 128 dk and dv hold 64 each). Descriptors are
+//     formed as they are issued. The build shows 0 spill bytes. Every f32
+//     operation outside the tensor cores is an __f*_rn intrinsic or
+//     ex2.approx (built with --fmad=false too).
+//  Masks and rows past S as in bf16: the causal index mask skips whole
+//  tiles and masks the diagonal ones in their own loops, positions mask
+//  every tile, a key past S is masked in the dq pass, a q row past S
+//  contributes nothing (zeros and a record of zeros), a row that saw no key
+//  has p = 0 and p^T + 1/S.
+//  Tried on the H100 and not kept: a second consumer warpgroup in the
+//  dk/dv pass at hd 64 (item 4), with producer warps of its own for each
+//  warpgroup's slot (spilled, slower), the tiles of a head in the grid's x
+//  (slower dq pass), all of a tile's loads before the producer's first
+//  wait (no faster).
 //
 // bf16 (`flash_attention_bwd_bf16_*`): the FlashAttention-2/3 backward on
 // Hopper's tensor cores, in the frame of the bf16 forward: blocks of 384
@@ -112,354 +174,902 @@
 namespace {
 
 constexpr float MASKED_LSE = -1e20f;
-constexpr int BQ = 64, BK = 64;         // q rows, kv rows a tile
-constexpr int THREADS = 256;            // 8 warps: ty = warp, tx = lane
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// ------------------------------ f32, 3xTF32 on the tensor cores (Hopper) --
 
-// rows [row0, row0 + ROWS) of a (B, S, heads, HD) operand at (b, head), as
-// f32 into shared memory with a row stride of HD + 1; zeros past S
-template <int HD, int ROWS, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
-                                          int b, int head, int heads,
-                                          int row0, int S) {
-  for (int e = threadIdx.x; e < ROWS * HD; e += THREADS) {
-    const int r = e / HD, d = e % HD, row = row0 + r;
-    dst[r * (HD + 1) + d] =
-        row < S ? load(src + (((long long)b * S + row) * heads + head) * HD + d)
-                : 0.0f;
+namespace tf32 {
+
+using namespace hopper;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ROWS rows from row0 of an operand that lies row-major in device memory
+// (HD floats a row, rows `stride` floats apart), zeros from row S on,
+// split and stored K-major under the 128-byte swizzle for a product over
+// hd, lo BYTES after hi: (r, d) at (d / 32) * ROWS * 128 + r * 128 + (((d
+// % 32) / 4) ^ (r % 8)) * 16 + (d % 4) * 4. A thread takes PIECES pieces
+// of 16 bytes, in batches of up to MAX_BATCH all loaded before the first is
+// split; eight consecutive threads store one 128-byte row (conflict-free).
+template <int HD, int ROWS, int MAX_BATCH = 8>
+struct Rows {
+  static constexpr int PER_ROW = HD / 4;              // 16-byte pieces a row
+  static constexpr int PIECES = ROWS * PER_ROW / 128;
+  static constexpr int BATCH = PIECES < MAX_BATCH ? PIECES : MAX_BATCH;
+  static constexpr int BATCHES = PIECES / BATCH;
+  static constexpr int BYTES = ROWS * HD * 4;         // one of hi, lo
+  static_assert(BATCHES * BATCH * 128 == ROWS * PER_ROW,
+                "rows do not divide");
+
+  static __device__ __forceinline__ void load(float4 (&x)[BATCH],
+                                              const float* __restrict__ src,
+                                              long long stride, int row0,
+                                              int S, int pt, int batch) {
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int u = pt + 128 * (BATCH * batch + j);
+      const int r = row0 + u / PER_ROW;
+      x[j] = r < S ? __ldg(reinterpret_cast<const float4*>(
+                         src + r * stride + 4 * (u % PER_ROW)))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  // the same pieces from ROWS rows staged as they lie (HD floats a row)
+  // in shared memory at raw
+  static __device__ __forceinline__ void load_shared(float4 (&x)[BATCH],
+                                                     uint32_t raw, int pt,
+                                                     int batch) {
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+      x[j] = lds_f4(raw + 16 * (pt + 128 * (BATCH * batch + j)));
+  }
+
+  static __device__ __forceinline__ void store(const float4 (&x)[BATCH],
+                                               uint32_t hi, int pt,
+                                               int batch) {
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int u = pt + 128 * (BATCH * batch + j);
+      const int r = u / PER_ROW, c4 = u % PER_ROW;
+      const uint32_t off = (c4 / 8) * ROWS * ROW_BYTES + r * ROW_BYTES +
+                           (((c4 % 8) ^ (r % 8)) << 4);
+      const float a[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(a[e], h[e], l[e]);
+      st_shared_v4(hi + off, h);
+      st_shared_v4(hi + BYTES + off, l);
+    }
+  }
+
+  // every batch, loaded and stored; wait() runs before the first store
+  template <typename Wait>
+  static __device__ __forceinline__ void copy(const float* __restrict__ src,
+                                              long long stride, int row0,
+                                              int S, uint32_t hi, int pt,
+                                              Wait wait) {
+    float4 x[BATCH];
+#pragma unroll 1
+    for (int batch = 0; batch < BATCHES; ++batch) {
+      load(x, src, stride, row0, S, pt, batch);
+      if (batch == 0) wait();
+      store(x, hi, pt, batch);
+    }
+  }
+};
+
+// The transpose, (HD, ROWS), of ROWS rows from row0 of such an operand,
+// zeros from row S on, split and stored K-major under the swizzle for a
+// product over the rows (tf32 wgmma takes no transpose), lo BYTES after
+// hi. Each k8 step's rows lie in the order in which split_frags hands an
+// accumulator's columns to the A fragments: fragment column c holds row 2c
+// for c < 4 and 2 (c - 4) + 1 for c >= 4. So (n, row 8j + e) lies at (j /
+// 4) * HD * 128 + n * 128 + ((2 (j % 4) + e % 2) ^ (n % 8)) * 16 + (e / 2)
+// * 4; under 32 rows half of each 128-byte row is unused. A thread takes
+// one column n and STEPS k8 steps, 8 STEPS loads of 4 bytes (a warp's are
+// 128 contiguous bytes); eight consecutive threads store eight rows n
+// (conflict-free).
+template <int HD, int ROWS, int MAX_PART = 4>
+struct Cols {
+  static constexpr int G = 128 / HD;                  // threads a column
+  static constexpr int STEPS = ROWS / 8 / G;          // k8 steps a thread
+  static constexpr int BYTES = (ROWS < 32 ? 32 : ROWS) * HD * 4;
+  static_assert(STEPS >= 1 && STEPS * G * 8 == ROWS, "rows do not divide");
+
+  // k8 steps [a0, a0 + PART) of the thread's
+  template <int PART>
+  static __device__ __forceinline__ void load(float (&x)[8 * PART],
+                                              const float* __restrict__ src,
+                                              long long stride, int row0,
+                                              int S, int pt, int a0 = 0) {
+    const int n = pt % HD, j0 = pt / HD;
+#pragma unroll
+    for (int a = 0; a < PART; ++a)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = row0 + 8 * (j0 + G * (a0 + a)) + e;
+        x[8 * a + e] = r < S ? __ldg(src + r * stride + n) : 0.0f;
+      }
+  }
+
+  // the same values from ROWS rows staged as they lie (HD floats a row) in
+  // shared memory at raw: a warp reads 32 consecutive floats of a row
+  template <int PART>
+  static __device__ __forceinline__ void load_shared(float (&x)[8 * PART],
+                                                     uint32_t raw, int pt,
+                                                     int a0 = 0) {
+    const int n = pt % HD, j0 = pt / HD;
+#pragma unroll
+    for (int a = 0; a < PART; ++a)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = 8 * (j0 + G * (a0 + a)) + e;
+        x[8 * a + e] = lds_f32(raw + 4 * (r * HD + n));
+      }
+  }
+
+  template <int PART>
+  static __device__ __forceinline__ void store(const float (&x)[8 * PART],
+                                               uint32_t hi, int pt,
+                                               int a0 = 0) {
+    const int n = pt % HD, j0 = pt / HD;
+#pragma unroll
+    for (int a = 0; a < PART; ++a) {
+      const int j = j0 + G * (a0 + a);
+#pragma unroll
+      for (int odd = 0; odd < 2; ++odd) {
+        const uint32_t off = (j / 4) * HD * ROW_BYTES + n * ROW_BYTES +
+                             (((2 * (j % 4) + odd) ^ (n % 8)) << 4);
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          split(x[8 * a + 2 * c + odd], h[c], l[c]);
+        st_shared_v4(hi + off, h);
+        st_shared_v4(hi + BYTES + off, l);
+      }
+    }
+  }
+
+  // every k8 step, up to MAX_PART at a time; wait() runs before the first
+  // store
+  template <typename Wait>
+  static __device__ __forceinline__ void copy(const float* __restrict__ src,
+                                              long long stride, int row0,
+                                              int S, uint32_t hi, int pt,
+                                              Wait wait) {
+    constexpr int PART = STEPS < MAX_PART ? STEPS : MAX_PART;
+    float x[8 * PART];
+#pragma unroll 1
+    for (int a0 = 0; a0 < STEPS; a0 += PART) {
+      load<PART>(x, src, stride, row0, S, pt, a0);
+      if (a0 == 0) wait();
+      store<PART>(x, hi, pt, a0);
+    }
+  }
+};
+
+// sc[ch] = A . B^T over hd chunk ch (32 columns), 3xTF32 (hi.hi + hi.lo +
+// lo.hi each k8 step), each chunk into fresh accumulators: the tensor cores
+// truncate their sums. A: the 64 rows at a of a Rows tile of A_ROWS rows,
+// its lo A_LO bytes on; B: a Rows tile of N rows at b, its lo B_LO bytes
+// on. Each step's descriptors are the previous ones plus the step's offset
+// (in 16-byte units), made opaque after each step, so they are formed as
+// they are issued and never held all at once.
+template <int HD, int A_ROWS, int N, int A_LO, int B_LO>
+__device__ __forceinline__ void issue_over_hd(float (&sc)[HD / 32][N / 2],
+                                              uint32_t a, uint32_t b) {
+  uint64_t da = sw128_desc(a), db = sw128_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    wgmma_tf32_ss(sc[kk / 4], da, db, kk % 4 > 0);
+    wgmma_tf32_ss(sc[kk / 4], da, db + (B_LO >> 4), 1);
+    wgmma_tf32_ss(sc[kk / 4], da + (A_LO >> 4), db, 1);
+    // the next 32 bytes of the row, or the next 32-column chunk
+    da += kk % 4 < 3 ? 2 : (A_ROWS * ROW_BYTES - 3 * 32) >> 4;
+    db += kk % 4 < 3 ? 2 : (N * ROW_BYTES - 3 * 32) >> 4;
+    opaque(da);
+    opaque(db);
   }
 }
 
-// D_i = dO_i . o_i for the q tile's rows (in shared memory as dos; o read
-// from device memory), one warp a row: lane-strided sums, then a fixed
-// butterfly over the warp
-template <int HD, typename T>
-__device__ __forceinline__ void row_dots(float* D, const float* dos,
-                                         const T* __restrict__ o, int b,
-                                         int h, int H, int q0, int S) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < BQ; r += THREADS / 32) {
-    const int row = q0 + r;
+// sc[0] = the sum of the chunks, in f32
+template <int CH, int NS>
+__device__ __forceinline__ void sum_chunks(float (&sc)[CH][NS]) {
+#pragma unroll
+  for (int ch = 1; ch < CH; ++ch)
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[0][i] = __fadd_rn(sc[0][i], sc[ch][i]);
+}
+
+// An accumulator (x[4j + 2i + e]: row r0 + 8i, column 8j + c0 + e) as the
+// tf32 hi and lo A fragments of a product over its columns, with no data
+// moved between threads: a thread holds columns 2t and 2t + 1 of each k8
+// step (t = lane % 4) where the fragment wants t and t + 4, so fragment
+// column t takes column 2t and t + 4 column 2t + 1, the order in which
+// Cols stores the other operand's rows
+template <int NS>
+__device__ __forceinline__ void split_frags(const float (&x)[NS],
+                                            uint32_t (&hi)[NS / 4][4],
+                                            uint32_t (&lo)[NS / 4][4]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    const float a[4] = {x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split(a[r], hi[j][r], lo[j][r]);
+  }
+}
+
+// acc = A . B into fresh accumulators over 8 KSTEPS rows of k, 3xTF32: A
+// the hi and lo fragments; B a Cols tile of N columns at b, its lo B_LO
+// bytes on, k8 step kk at (kk / 4) * N * 128 + (kk % 4) * 32; descriptors
+// formed as they are issued (issue_over_hd)
+template <int N, int KSTEPS, int B_LO>
+__device__ __forceinline__ void issue_frags(float (&acc)[N / 2],
+                                            const uint32_t (&ah)[KSTEPS][4],
+                                            const uint32_t (&al)[KSTEPS][4],
+                                            uint32_t b) {
+  uint64_t db = sw128_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_tf32_rs(acc, ah[kk], db, kk > 0);
+    wgmma_tf32_rs(acc, ah[kk], db + (B_LO >> 4), 1);
+    wgmma_tf32_rs(acc, al[kk], db, 1);
+    db += kk % 4 < 3 ? 2 : (N * ROW_BYTES - 3 * 32) >> 4;
+    opaque(db);
+  }
+}
+
+// D_i = dO_i . o_i in f32 for a warp's 16 rows from row0 (element offset
+// at, rows stride apart), one row at a time: a lane multiplies hd / 32
+// pairs, a butterfly sums them over the warp; a thread keeps those of its
+// rows row0 + lane / 4 and + 8. Zero past S.
+template <int HD>
+__device__ __forceinline__ void row_dots(float (&D)[2],
+                                         const float* __restrict__ o,
+                                         const float* __restrict__ dO,
+                                         long long at, long long stride,
+                                         int row0, int S, int lane) {
+#pragma unroll
+  for (int rr = 0; rr < 16; ++rr) {
     float acc = 0.0f;
-    if (row < S) {
-      const T* orow = o + (((long long)b * S + row) * H + h) * HD;
+    if (row0 + rr < S) {
+      const long long e = at + rr * stride + lane;
 #pragma unroll
       for (int c = 0; c < HD / 32; ++c)
-        acc = __fmaf_rn(dos[r * (HD + 1) + lane + 32 * c],
-                        load(orow + lane + 32 * c), acc);
+        acc = __fmaf_rn(__ldg(o + e + 32 * c), __ldg(dO + e + 32 * c), acc);
     }
 #pragma unroll
     for (int w = 16; w >= 1; w /= 2)
       acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, w));
-    if (lane == 0) D[r] = acc;
+    if (rr % 8 == lane / 4) D[rr / 8] = acc;
   }
 }
 
-// The q-tile x kv-tile part both passes share: s = q.k and dp = dO.v for
-// rows ty + 8a and columns tx + 32b, then p and ds; writes ds (and p when
-// ps is given) into shared memory, BK floats a row.
-template <int HD, bool POS>
-__device__ __forceinline__ void p_and_ds(float* ps, float* dss,
-                                         const float* qs, const float* dos,
-                                         const float* ks, const float* vs,
-                                         const float* lse_s, const float* D,
-                                         const int* qpos, const int* kvpos,
-                                         int q0, int k0, int S, int causal,
-                                         float scale, float inv_s) {
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  float s[8][2], dp[8][2];
+// rows r0 and r0 + 8 of an accumulator over hd, times mul, to rows at out
+// + row * stride; rows past S skipped
+template <int NO>
+__device__ __forceinline__ void store_rows(float* __restrict__ out,
+                                           long long stride,
+                                           const float (&acc)[NO], float mul,
+                                           int r0, int c0, int S) {
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = r0 + 8 * ri;
+    if (row >= S) continue;
+    float* orow = out + row * stride;
 #pragma unroll
-    for (int b = 0; b < 2; ++b) s[a][b] = dp[a][b] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    const float kb[2] = {ks[tx * (HD + 1) + d], ks[(tx + 32) * (HD + 1) + d]};
-    const float vb[2] = {vs[tx * (HD + 1) + d], vs[(tx + 32) * (HD + 1) + d]};
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float qa = qs[(ty + 8 * a) * (HD + 1) + d];
-      const float da = dos[(ty + 8 * a) * (HD + 1) + d];
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        s[a][b] = __fmaf_rn(qa, kb[b], s[a][b]);
-        dp[a][b] = __fmaf_rn(da, vb[b], dp[a][b]);
-      }
-    }
+    for (int j = 0; j < NO / 4; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + c0) =
+          make_float2(__fmul_rn(acc[4 * j + 2 * ri], mul),
+                      __fmul_rn(acc[4 * j + 2 * ri + 1], mul));
   }
+}
+
+// dq pass: BQ q rows a block, 64 a consumer warpgroup; kv tiles of BKV rows
+// through one set of k, v and k^T, each with a full and an empty mbarrier
+template <int HD>
+struct DqF32 {
+  static constexpr int NWG = HD == 64 ? 2 : 1;        // 64 q rows each
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int BQ = 64 * NWG, BKV = HD == 64 ? 64 : 32;
+  static constexpr int NS = BKV / 2, NO = HD / 2, KSTEPS = BKV / 8;
+  // the producer loads in pieces that fit its 72 registers beside two
+  // consumer warpgroups, in larger ones beside one
+  using QRows = Rows<HD, BQ, NWG == 2 ? 4 : 8>;
+  using KRows = Rows<HD, BKV, NWG == 2 ? 4 : 8>;
+  using KCols = Cols<HD, BKV, NWG == 2 ? 2 : 4>;
+  // q, dO, k, v (hi then lo each), k^T, all 1024-aligned (the swizzle's
+  // period); 7 mbarriers after; 1024 bytes of slack to align the base
+  static constexpr int DO = 2 * QRows::BYTES, K = 2 * DO;
+  static constexpr int V = K + 2 * KRows::BYTES, KT = V + 2 * KRows::BYTES;
+  static constexpr int BAR_OFF = KT + 2 * KCols::BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 7 * 8;
+  // registers a thread after setmaxnreg, two consumer warpgroups only
+  // (the block is compiled at 168: the consumers take what the producer
+  // gives up)
+  static constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
+  static_assert(PRODUCER_REGS + 2 * CONSUMER_REGS <= 3 * 168,
+                "setmaxnreg.inc would wait for registers no one gives up");
+};
+
+// dk/dv pass: 64 kv rows a block, held by its one consumer warpgroup,
+// which takes the q tiles (BQ rows) of each query head in turn through one
+// slot: set A (q, dO) and set B (q^T, dO^T, the q rows' records), each
+// with a full and an empty mbarrier
+template <int HD>
+struct KvF32 {
+  static constexpr int THREADS = 256;
+  static constexpr int BKV = 64, BQ = HD == 64 ? 32 : 16;
+  static constexpr int NS = BQ / 2, NO = HD / 2, KSTEPS = BQ / 8;
+  using KRows = Rows<HD, BKV>;
+  using QRows = Rows<HD, BQ>;
+  using QCols = Cols<HD, BQ>;
+  static_assert(QRows::BATCHES == 1, "a q tile loads in one batch");
+  // at hd 64 the producer stages each q tile's q and dO rows as they lie,
+  // two tiles deep, by cp.async, and splits them from there: their loads
+  // fly while it splits the tile before (at hd 128 there is no room)
+  static constexpr bool STAGED = HD == 64;
+  // k, v (hi then lo each), then the slot (q, dO, q^T, dO^T, hi then lo
+  // each), all 1024-aligned; the raw stages; the slot's records (BQ rows
+  // of 16 bytes); 5 mbarriers
+  static constexpr int V = 2 * KRows::BYTES, SLOTS = 2 * V;
+  static constexpr int DO = 2 * QRows::BYTES, QT = 2 * DO;
+  static constexpr int DOT = QT + 2 * QCols::BYTES;
+  static constexpr int SLOT_BYTES = DOT + 2 * QCols::BYTES;
+  static constexpr int RAW = SLOTS + SLOT_BYTES;
+  static constexpr int RAW_OP = BQ * HD * 4;           // one of q, dO
+  static constexpr int RAW_BYTES = STAGED ? 2 * RAW_OP : 0;
+  static constexpr int RECS = RAW + 2 * RAW_BYTES;
+  static constexpr int BAR_OFF = RECS + BQ * 16;
+  static constexpr int SMEM = 1024 + BAR_OFF + 5 * 8;
+};
+
+// ds of one kv tile in the dq pass, in place of s: p = 2^(s c + off) (0
+// for a row that saw no key or lies past S: off = -inf), ds = p (dp - D).
+// MASK: a key past S, or (causal) one the row does not see, gets p = 0.
+template <bool MASK, bool POS, int NS>
+__device__ __forceinline__ void dq_scores(float (&s)[NS], const float (&dp)[NS],
+                                          const float (&off)[2],
+                                          const float (&D)[2], float c,
+                                          int k0, int r0, int c0, int S,
+                                          int causal,
+                                          const int* __restrict__ kvpos,
+                                          const int (&qp)[2]) {
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int r = ty + 8 * a, i = q0 + r;
-    const float lse = lse_s[r];
-    const bool full = lse < MASKED_LSE;
+  for (int j = 0; j < NS / 4; ++j) {
+    int kp[2] = {0, 0};
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int c = tx + 32 * b, j = k0 + c;
-      bool seen = i < S && j < S;
-      if (causal) seen = seen && (POS ? kvpos[c] <= qpos[r] : j <= i);
-      float p = 0.0f, ds = 0.0f;
-      if (i < S && j < S && full) {
-        p = inv_s;
-      } else if (seen) {
-        p = expf(__fsub_rn(__fmul_rn(s[a][b], scale), lse));
-        ds = __fmul_rn(p, __fsub_rn(dp[a][b], D[r]));
-      }
-      if (ps != nullptr) ps[r * BK + c] = p;
-      dss[r * BK + c] = ds;
+    for (int e = 0; e < 2; ++e) {
+      const int kv = k0 + 8 * j + c0 + e;
+      if (MASK && POS) kp[e] = kv < S ? __ldg(kvpos + kv) : 0;
     }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * ri + e, kv = k0 + 8 * j + c0 + e;
+        float p = ex2(__fmaf_rn(s[x], c, off[ri]));
+        if (MASK) {
+          bool seen = kv < S;
+          if (causal)
+            seen = seen && (POS ? kp[e] <= qp[ri] : kv <= r0 + 8 * ri);
+          p = seen ? p : 0.0f;
+        }
+        s[x] = __fmul_rn(p, __fsub_rn(dp[x], D[ri]));
+      }
+  }
+}
+
+// p^T + b and ds^T of one q tile in the dk/dv pass, in place of s^T and
+// dp^T: kv row r0 + 8i against q row q0 + col, col = 8j + c0 + e, whose
+// record (off, D, q position) lies at rec + 16 col; b = 1/S for a row that
+// saw no key (off = -inf), whose record holds 1/S in place of D, else 0. A
+// q row past S has a record of zeros and q and dO rows of zeros: p = 1
+// against dO = 0, and ds = 0. MASK (causal): a kv row the q row does not
+// see gets p = 0.
+template <bool MASK, bool POS, int NS>
+__device__ __forceinline__ void kv_scores(float (&st)[NS], float (&dpt)[NS],
+                                          uint32_t rec, float c, int q0,
+                                          int r0, int c0,
+                                          const int (&kp)[2]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    float2 r[2];          // (off, D)
+    int qpos[2] = {0, 0};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      r[e] = lds_f2(rec + 16 * (8 * j + c0 + e));
+      if (MASK && POS) qpos[e] = lds_s32(rec + 16 * (8 * j + c0 + e) + 8);
+    }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * ri + e, col = 8 * j + c0 + e;
+        float pe = ex2(__fmaf_rn(st[x], c, r[e].x));
+        if (MASK)
+          pe = (POS ? kp[ri] <= qpos[e] : r0 + 8 * ri <= q0 + col) ? pe
+                                                                  : 0.0f;
+        dpt[x] = __fmul_rn(pe, __fsub_rn(dpt[x], r[e].y));
+        st[x] = __fadd_rn(pe, __float_as_uint(r[e].x) == 0xff800000u ? r[e].y
+                                                                     : 0.0f);
+      }
+  }
+}
+
+// One kv tile of the dq pass for one consumer warpgroup; bars: the full and
+// empty mbarriers of k, v and k^T, 8 bytes apart
+template <int HD, bool MASK, bool POS>
+__device__ __forceinline__ void dq_tile(float (&acc)[HD / 2], uint32_t q_wg,
+                                        uint32_t do_wg, uint32_t k_s,
+                                        uint32_t v_s, uint32_t kt_s,
+                                        uint32_t bars, int i,
+                                        const float (&off)[2],
+                                        const float (&D)[2], float c, int r0,
+                                        int c0, int S, int causal,
+                                        const int* __restrict__ kvpos,
+                                        const int (&qp)[2]) {
+  using T = DqF32<HD>;
+  const uint32_t parity = i & 1;
+  // s, then dp: the chunks of both would not fit in flight beside dq
+  float sc[HD / 32][T::NS], dc[HD / 32][T::NS];
+  mbar_wait(bars, parity);                  // k
+  wgmma_fence();
+  issue_over_hd<HD, T::BQ, T::BKV, T::QRows::BYTES, T::KRows::BYTES>(
+      sc, q_wg, k_s);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(sc);
+  mbar_arrive(bars + 8);
+  sum_chunks(sc);
+  mbar_wait(bars + 16, parity);             // v
+  wgmma_fence();
+  issue_over_hd<HD, T::BQ, T::BKV, T::QRows::BYTES, T::KRows::BYTES>(
+      dc, do_wg, v_s);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(dc);
+  mbar_arrive(bars + 24);
+  sum_chunks(dc);
+  dq_scores<MASK, POS>(sc[0], dc[0], off, D, c, i * T::BKV, r0, c0, S,
+                       causal, kvpos, qp);
+  uint32_t ah[T::KSTEPS][4], al[T::KSTEPS][4];
+  split_frags(sc[0], ah, al);
+  float t[T::NO];
+  mbar_wait(bars + 32, parity);             // k^T
+  wgmma_fence();
+  issue_frags<HD, T::KSTEPS, T::KCols::BYTES>(t, ah, al, kt_s);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(t);
+  reg_fence(ah);            // read by the wgmmas until here
+  reg_fence(al);
+  mbar_arrive(bars + 40);
+#pragma unroll
+  for (int x = 0; x < T::NO; ++x) acc[x] = __fadd_rn(acc[x], t[x]);
+}
+
+// One q tile of the dk/dv pass, in the slot (its records at rec); bars:
+// the slot's full and empty mbarriers of set A, then of set B
+template <int HD, bool MASK, bool POS>
+__device__ __forceinline__ void kv_tile(float (&dk)[HD / 2],
+                                        float (&dv)[HD / 2], uint32_t k_s,
+                                        uint32_t v_s, uint32_t slot,
+                                        uint32_t rec, uint32_t bars, int n,
+                                        float c, int q0, int r0, int c0,
+                                        const int (&kp)[2]) {
+  using T = KvF32<HD>;
+  const uint32_t parity = n & 1;
+  float sc[HD / 32][T::NS], dc[HD / 32][T::NS];
+  mbar_wait(bars, parity);                  // q, dO
+  wgmma_fence();
+  issue_over_hd<HD, T::BKV, T::BQ, T::KRows::BYTES, T::QRows::BYTES>(
+      sc, k_s, slot);
+  issue_over_hd<HD, T::BKV, T::BQ, T::KRows::BYTES, T::QRows::BYTES>(
+      dc, v_s, slot + T::DO);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(sc);
+  reg_fence(dc);
+  mbar_arrive(bars + 8);
+  sum_chunks(sc);
+  sum_chunks(dc);
+  mbar_wait(bars + 16, parity);             // q^T, dO^T, records
+  kv_scores<MASK, POS>(sc[0], dc[0], rec, c, q0, r0, c0, kp);
+  // dv += p^T . dO, then dk += ds^T . q, each into fresh accumulators
+  // (one at a time: at hd 128 both would not fit beside dk and dv)
+  uint32_t ah[T::KSTEPS][4], al[T::KSTEPS][4];
+  float t[T::NO];
+  split_frags(sc[0], ah, al);
+  wgmma_fence();
+  issue_frags<HD, T::KSTEPS, T::QCols::BYTES>(t, ah, al, slot + T::DOT);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(t);
+  reg_fence(ah);
+  reg_fence(al);
+#pragma unroll
+  for (int x = 0; x < T::NO; ++x) dv[x] = __fadd_rn(dv[x], t[x]);
+  split_frags(dc[0], ah, al);
+  wgmma_fence();
+  issue_frags<HD, T::KSTEPS, T::QCols::BYTES>(t, ah, al, slot + T::QT);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(t);
+  reg_fence(ah);
+  reg_fence(al);
+  mbar_arrive(bars + 24);
+#pragma unroll
+  for (int x = 0; x < T::NO; ++x) dk[x] = __fadd_rn(dk[x], t[x]);
+}
+
+template <int HD, bool POS>
+__global__ void __launch_bounds__(DqF32<HD>::THREADS, 1)
+flash_attention_bwd_f32_dq_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ o,
+                                  const float* __restrict__ dO,
+                                  const float* __restrict__ lse,
+                                  const int* __restrict__ q_pos,
+                                  const int* __restrict__ kv_pos,
+                                  float* __restrict__ dq,
+                                  float4* __restrict__ rec, int S, int H,
+                                  int group, float scale, int causal) {
+  using T = DqF32<HD>;
+  constexpr int BQ = T::BQ, BKV = T::BKV, NWG = T::NWG;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base, do_s = base + T::DO, k_s = base + T::K;
+  const uint32_t v_s = base + T::V, kt_s = base + T::KT;
+  // q's full barrier, then the full and empty barriers of k, v and k^T
+  const uint32_t q_full = base + T::BAR_OFF, bars = q_full + 8;
+
+  // blocks start in the order of their linear index, x fastest: every
+  // head's heaviest causal q tile first
+  const int n_q = (S + BQ - 1) / BQ;
+  const int q0 = (n_q - 1 - (int)blockIdx.y) * BQ;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kvh = h / group;
+  int n_kv = (S + BKV - 1) / BKV;
+  if (causal && !POS) n_kv = min(n_kv, min(q0 + BQ - 1, S - 1) / BKV + 1);
+  const long long q_st = (long long)H * HD, kv_st = (long long)(H / group) * HD;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 128);
+    for (int w = 0; w < 3; ++w) {
+      mbar_init(bars + 16 * w, 128);
+      mbar_init(bars + 16 * w + 8, 128 * NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer: loads, splits and stores every operand ----
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                   :: "n"(T::PRODUCER_REGS));
+    const int pt = threadIdx.x - 128 * NWG;
+    const long long at = (long long)b * S * q_st + h * HD;
+    const float* kb = k + (long long)b * S * kv_st + kvh * HD;
+    const float* vb = v + (long long)b * S * kv_st + kvh * HD;
+    auto now = [] {};
+    T::QRows::copy(q + at, q_st, q0, S, q_s, pt, now);
+    T::QRows::copy(dO + at, q_st, q0, S, do_s, pt, now);
+    fence_proxy_async();
+    mbar_arrive(q_full);
+    // tile i's k and v go in once the consumers are done with tile i - 1's
+    // s and dp, its k^T once they are done with its dq product; each load
+    // is issued before the wait
+    for (int i = 0; i < n_kv; ++i) {
+      const uint32_t parity = (i - 1) & 1;
+      T::KRows::copy(kb, kv_st, i * BKV, S, k_s, pt, [&] {
+        if (i > 0) mbar_wait(bars + 8, parity);
+      });
+      fence_proxy_async();
+      mbar_arrive(bars);
+      T::KRows::copy(vb, kv_st, i * BKV, S, v_s, pt, [&] {
+        if (i > 0) mbar_wait(bars + 24, parity);
+      });
+      fence_proxy_async();
+      mbar_arrive(bars + 16);
+      T::KCols::copy(kb, kv_st, i * BKV, S, kt_s, pt, [&] {
+        if (i > 0) mbar_wait(bars + 40, parity);
+      });
+      fence_proxy_async();
+      mbar_arrive(bars + 32);
+    }
+  } else {
+    // ---- consumers: 64 q rows each ----
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;"
+                   :: "n"(T::CONSUMER_REGS));
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int row_first = q0 + wg * 64;
+    const int r0 = row_first + warp * 16 + lane / 4, c0 = 2 * (lane % 4);
+    const long long at0 = (long long)b * S * q_st + h * HD;   // (b, 0, h)
+
+    // each row's D and record; lse and the positions are read below S only
+    float D[2] = {0.0f, 0.0f}, off[2];
+    int qp[2] = {0, 0};
+    row_dots<HD>(D, o, dO, at0 + (row_first + warp * 16) * q_st, q_st,
+                 row_first + warp * 16, S, lane);
+    const float inv_s = __fdiv_rn(1.0f, (float)S);
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int i = r0 + 8 * ri;
+      off[ri] = __int_as_float(0xff800000);            // -inf
+      if (i < S) {
+        const float l = lse[(long long)bh * S + i];
+        const bool blind = l < MASKED_LSE;
+        if (!blind) off[ri] = __fmul_rn(l, -LOG2E);
+        if (POS) qp[ri] = q_pos[(long long)b * S + i];
+        if (lane % 4 == 0)
+          rec[(long long)bh * S + i] = make_float4(
+              off[ri], blind ? inv_s : D[ri], __int_as_float(qp[ri]), 0.0f);
+      }
+    }
+    const float c = __fmul_rn(scale, LOG2E);
+    const int* kvpos = POS ? kv_pos + (long long)b * S : nullptr;
+    const uint32_t q_wg = q_s + wg * 64 * ROW_BYTES;
+    const uint32_t do_wg = do_s + wg * 64 * ROW_BYTES;
+
+    // kv tiles [0, n_full) unmasked, [n_full, n_end) masked (the causal
+    // diagonal, or the ragged tail), [n_end, n_kv) only released: they lie
+    // past this warpgroup's rows
+    int n_full = n_kv, n_end = n_kv;
+    if (causal && !POS) {
+      n_full = n_end = 0;
+      if (row_first < S) {
+        n_full = row_first / BKV;
+        n_end = min(n_kv, min(row_first + 63, S - 1) / BKV + 1);
+      }
+    } else if (causal) {
+      n_full = 0;
+    } else if (S % BKV != 0) {
+      n_full = n_kv - 1;
+    }
+
+    float acc[T::NO];
+#pragma unroll
+    for (int x = 0; x < T::NO; ++x) acc[x] = 0.0f;
+    mbar_wait(q_full, 0);
+    int i = 0;
+    for (; i < n_full; ++i)
+      dq_tile<HD, false, POS>(acc, q_wg, do_wg, k_s, v_s, kt_s, bars, i, off,
+                              D, c, r0, c0, S, causal, kvpos, qp);
+    for (; i < n_end; ++i)
+      dq_tile<HD, true, POS>(acc, q_wg, do_wg, k_s, v_s, kt_s, bars, i, off,
+                             D, c, r0, c0, S, causal, kvpos, qp);
+    for (; i < n_kv; ++i)
+      for (int w = 0; w < 3; ++w) {
+        mbar_wait(bars + 16 * w, i & 1);
+        mbar_arrive(bars + 16 * w + 8);
+      }
+    store_rows(dq + at0, q_st, acc, scale, r0, c0, S);
+  }
+}
+
+template <int HD, bool POS>
+__global__ void __launch_bounds__(KvF32<HD>::THREADS, 1)
+flash_attention_bwd_f32_dkdv_kernel(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    const float* __restrict__ dO,
+                                    const float4* __restrict__ rec,
+                                    const int* __restrict__ kv_pos,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int S, int H,
+                                    int KV, float scale, int causal) {
+  using T = KvF32<HD>;
+  constexpr int BQ = T::BQ, BKV = T::BKV;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base, v_s = base + T::V, slot = base + T::SLOTS;
+  const uint32_t rec_s = base + T::RECS;
+  // k and v's full barrier, then the slot's full and empty barriers of set
+  // A and of set B
+  const uint32_t kv_full = base + T::BAR_OFF, bars = kv_full + 8;
+
+  // kv tile 0 first: under the causal mask every q tile sees it
+  const int k0 = (int)blockIdx.y * BKV;
+  const int bkv = blockIdx.x;
+  const int b = bkv / KV, kvh = bkv % KV, group = H / KV;
+  const int n_q = (S + BQ - 1) / BQ;
+  // the first q tile that can see the kv tile
+  const int u0 = (causal && !POS) ? k0 / BQ : 0;
+  const long long q_st = (long long)H * HD, kv_st = (long long)KV * HD;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 5; ++w) mbar_init(kv_full + 8 * w, 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 1) {
+    // ---- producer: loads, splits and stores every operand ----
+    const int pt = threadIdx.x - 128;
+    const long long kat = (long long)b * S * kv_st + kvh * HD;
+    auto now = [] {};
+    T::KRows::copy(k + kat, kv_st, k0, S, k_s, pt, now);
+    T::KRows::copy(v + kat, kv_st, k0, S, v_s, pt, now);
+    fence_proxy_async();
+    mbar_arrive(kv_full);
+    // q tile t goes into set A once the consumers are done with tile t -
+    // 1's s^T and dp^T, into set B once they are done with that tile.
+    // Tiles in order: t = g * per_head + u - u0 for query head g of the kv
+    // head.
+    const int per_head = n_q - u0, tiles = group * per_head;
+    auto head_rows = [&](const float* x, int t) {
+      return x + (long long)b * S * q_st + (kvh * group + t / per_head) * HD;
+    };
+    // tile t's records, for its first BQ producer threads (zeros past S)
+    auto record = [&](int t) {
+      const int row = (u0 + t % per_head) * BQ + pt;
+      float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (pt < BQ && row < S)
+        r = __ldg(rec + ((long long)b * H + kvh * group + t / per_head) * S +
+                  row);
+      return r;
+    };
+    // STAGED: tile t's q and dO rows, by cp.async into stage t % 2 (zeros
+    // past S), one commit group a tile
+    auto stage = [&](int t) { return base + T::RAW + (t % 2) * T::RAW_BYTES; };
+    auto fetch = [&](int t) {
+      const int row0 = (u0 + t % per_head) * BQ;
+#pragma unroll
+      for (int op = 0; op < 2; ++op) {
+        const float* src = head_rows(op == 0 ? q : dO, t);
+#pragma unroll
+        for (int j = 0; j < T::QRows::PIECES; ++j) {
+          const int piece = pt + 128 * j;
+          const int r = row0 + piece / (HD / 4);
+          cp_async16(stage(t) + op * T::RAW_OP + 16 * piece,
+                     src + (r < S ? r : 0) * q_st + 4 * (piece % (HD / 4)),
+                     r < S);
+        }
+      }
+      cp_async_commit();
+    };
+    float4 next_rec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (T::STAGED) {
+      if (tiles > 0) {
+        fetch(0);
+        next_rec = record(0);
+      }
+    }
+    for (int t = 0; t < tiles; ++t) {
+      const int u = u0 + t % per_head;
+      const uint32_t parity = (t - 1) & 1;
+      const float* qh = head_rows(q, t);
+      const float* doh = head_rows(dO, t);
+      float4 r;
+      if constexpr (T::STAGED) {
+        // every producer thread's copies of tile t have landed, and none
+        // reads stage t + 1 any more (it held tile t - 1)
+        cp_async_wait_all();
+        named_sync(2, 128);
+        r = next_rec;
+        if (t + 1 < tiles) {
+          fetch(t + 1);
+          next_rec = record(t + 1);
+        }
+      } else {
+        r = record(t);
+      }
+      {
+        float4 x[T::QRows::BATCH], y[T::QRows::BATCH];
+        if constexpr (T::STAGED) {
+          T::QRows::load_shared(x, stage(t), pt, 0);
+          T::QRows::load_shared(y, stage(t) + T::RAW_OP, pt, 0);
+        } else {
+          T::QRows::load(x, qh, q_st, u * BQ, S, pt, 0);
+          T::QRows::load(y, doh, q_st, u * BQ, S, pt, 0);
+        }
+        if (t > 0) mbar_wait(bars + 8, parity);
+        T::QRows::store(x, slot, pt, 0);
+        T::QRows::store(y, slot + T::DO, pt, 0);
+        fence_proxy_async();
+        mbar_arrive(bars);
+      }
+      {
+        constexpr int STEPS = T::QCols::STEPS;
+        float x[8 * STEPS], y[8 * STEPS];
+        if constexpr (T::STAGED) {
+          T::QCols::template load_shared<STEPS>(x, stage(t), pt);
+          T::QCols::template load_shared<STEPS>(y, stage(t) + T::RAW_OP, pt);
+        } else {
+          T::QCols::template load<STEPS>(x, qh, q_st, u * BQ, S, pt);
+          T::QCols::template load<STEPS>(y, doh, q_st, u * BQ, S, pt);
+        }
+        if (t > 0) mbar_wait(bars + 24, parity);
+        T::QCols::template store<STEPS>(x, slot + T::QT, pt);
+        T::QCols::template store<STEPS>(y, slot + T::DOT, pt);
+        if (pt < BQ) {
+          const uint32_t rv[4] = {__float_as_uint(r.x), __float_as_uint(r.y),
+                                  __float_as_uint(r.z), __float_as_uint(r.w)};
+          st_shared_v4(rec_s + 16 * pt, rv);
+        }
+        fence_proxy_async();
+        mbar_arrive(bars + 16);
+      }
+    }
+  } else {
+    // ---- the consumer warpgroup: all 64 kv rows, every q tile ----
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int r0 = k0 + warp * 16 + lane / 4, c0 = 2 * (lane % 4);
+    int kp[2] = {0, 0};
+    if (POS)
+      for (int ri = 0; ri < 2; ++ri)
+        if (r0 + 8 * ri < S) kp[ri] = kv_pos[(long long)b * S + r0 + 8 * ri];
+    const float c = __fmul_rn(scale, LOG2E);
+
+    float dk_acc[T::NO], dv_acc[T::NO];
+#pragma unroll
+    for (int x = 0; x < T::NO; ++x) dk_acc[x] = dv_acc[x] = 0.0f;
+    mbar_wait(kv_full, 0);
+    // q tiles [u0, u_mask) see the kv rows only in part: under the causal
+    // index mask those within BKV rows of k0, with positions all of them
+    const int u_mask = !causal ? u0 : (POS ? n_q : min(n_q, u0 + BKV / BQ));
+    int n = 0;
+    for (int g = 0; g < group; ++g) {
+      int u = u0;
+      for (; u < u_mask; ++u, ++n)
+        kv_tile<HD, true, POS>(dk_acc, dv_acc, k_s, v_s, slot, rec_s, bars,
+                               n, c, u * BQ, r0, c0, kp);
+      for (; u < n_q; ++u, ++n)
+        kv_tile<HD, false, POS>(dk_acc, dv_acc, k_s, v_s, slot, rec_s, bars,
+                                n, c, u * BQ, r0, c0, kp);
+    }
+    const long long at0 = (long long)b * S * kv_st + kvh * HD;   // (b, 0, kvh)
+    store_rows(dk + at0, kv_st, dk_acc, scale, r0, c0, S);
+    store_rows(dv + at0, kv_st, dv_acc, 1.0f, r0, c0, S);
   }
 }
 
 template <int HD>
-struct Smem {
-  static constexpr int ROW = HD + 1;
-  // k, v (BK rows), q, dO (BQ rows), p, ds (BQ x BK), lse, D, q and kv
-  // positions
-  static constexpr int FLOATS = 2 * BK * ROW + 2 * BQ * ROW + 2 * BQ * BK +
-                                2 * BQ;
-  static constexpr int BYTES = FLOATS * 4 + (BQ + BK) * 4;
-};
-
-// dk and dv of one (b, kv head, kv tile)
-template <int HD, typename T, bool POS>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attention_bwd_f32_dkdv_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                const T* __restrict__ o,
-                                const T* __restrict__ dO,
-                                const float* __restrict__ lse,
-                                const int* __restrict__ q_pos,
-                                const int* __restrict__ kv_pos,
-                                T* __restrict__ dk, T* __restrict__ dv, int S,
-                                int H, int KV, float scale, int causal) {
-  constexpr int ROW = HD + 1, NC = HD / 32;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + BK * ROW;
-  float* qs = vs + BK * ROW;
-  float* dos = qs + BQ * ROW;
-  float* ps = dos + BQ * ROW;
-  float* dss = ps + BQ * BK;
-  float* lse_s = dss + BQ * BK;
-  float* D = lse_s + BQ;
-  int* qpos = reinterpret_cast<int*>(D + BQ);
-  int* kvpos = qpos + BQ;
-
-  const int n_k = (S + BK - 1) / BK;
-  const int kt = n_k - 1 - (int)blockIdx.x;     // heaviest causal tiles first
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, group = H / KV;
-  const int k0 = kt * BK;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const float inv_s = __fdiv_rn(1.0f, (float)S);
-
-  load_rows<HD, BK>(ks, k, b, kvh, KV, k0, S);
-  load_rows<HD, BK>(vs, v, b, kvh, KV, k0, S);
-  if (POS)
-    for (int c = threadIdx.x; c < BK; c += THREADS)
-      kvpos[c] = k0 + c < S ? kv_pos[(long long)b * S + k0 + c] : 0;
-
-  float acc_k[8][NC], acc_v[8][NC];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[a][c] = acc_v[a][c] = 0.0f;
-
-  const int n_q = (S + BQ - 1) / BQ;
-  const int qt0 = (causal && !POS) ? k0 / BQ : 0;
-  for (int h = kvh * group; h < (kvh + 1) * group; ++h) {
-    for (int qt = qt0; qt < n_q; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();          // the previous tile's reads are done
-      load_rows<HD, BQ>(qs, q, b, h, H, q0, S);
-      load_rows<HD, BQ>(dos, dO, b, h, H, q0, S);
-      for (int r = threadIdx.x; r < BQ; r += THREADS) {
-        const int i = q0 + r;
-        lse_s[r] = i < S ? lse[((long long)b * H + h) * S + i] : 0.0f;
-        if (POS) qpos[r] = i < S ? q_pos[(long long)b * S + i] : 0;
-      }
-      __syncthreads();
-      row_dots<HD>(D, dos, o, b, h, H, q0, S);
-      __syncthreads();
-      p_and_ds<HD, POS>(ps, dss, qs, dos, ks, vs, lse_s, D, qpos, kvpos, q0,
-                        k0, S, causal, scale, inv_s);
-      __syncthreads();
-      // dv_j += p_ij dO_i, dk_j += ds_ij q_i: rows j = ty + 8a, columns
-      // d = tx + 32c
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float dor[NC], qr[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dor[c] = dos[r * ROW + tx + 32 * c];
-          qr[c] = qs[r * ROW + tx + 32 * c];
-        }
-#pragma unroll
-        for (int a = 0; a < 8; ++a) {
-          const float p = ps[r * BK + ty + 8 * a];
-          const float ds = dss[r * BK + ty + 8 * a];
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            acc_v[a][c] = __fmaf_rn(p, dor[c], acc_v[a][c]);
-            acc_k[a][c] = __fmaf_rn(ds, qr[c], acc_k[a][c]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int j = k0 + ty + 8 * a;
-    if (j >= S) continue;
-    const long long row = (((long long)b * S + j) * KV + kvh) * HD;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      store(dk + row + tx + 32 * c, __fmul_rn(acc_k[a][c], scale));
-      store(dv + row + tx + 32 * c, acc_v[a][c]);
-    }
-  }
-}
-
-// dq of one (b, h, q tile)
-template <int HD, typename T, bool POS>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attention_bwd_f32_dq_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ o,
-                              const T* __restrict__ dO,
-                              const float* __restrict__ lse,
-                              const int* __restrict__ q_pos,
-                              const int* __restrict__ kv_pos,
-                              T* __restrict__ dq, int S, int H, int KV,
-                              float scale, int causal) {
-  constexpr int ROW = HD + 1, NC = HD / 32;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + BK * ROW;
-  float* qs = vs + BK * ROW;
-  float* dos = qs + BQ * ROW;
-  float* dss = dos + BQ * ROW + BQ * BK;      // p is not kept here
-  float* lse_s = dss + BQ * BK;
-  float* D = lse_s + BQ;
-  int* qpos = reinterpret_cast<int*>(D + BQ);
-  int* kvpos = qpos + BQ;
-
-  const int n_q = (S + BQ - 1) / BQ;
-  const int qt = n_q - 1 - (int)blockIdx.x;     // heaviest causal tiles first
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
-  const int q0 = qt * BQ;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const float inv_s = __fdiv_rn(1.0f, (float)S);
-
-  load_rows<HD, BQ>(qs, q, b, h, H, q0, S);
-  load_rows<HD, BQ>(dos, dO, b, h, H, q0, S);
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const int i = q0 + r;
-    lse_s[r] = i < S ? lse[((long long)b * H + h) * S + i] : 0.0f;
-    if (POS) qpos[r] = i < S ? q_pos[(long long)b * S + i] : 0;
-  }
-  __syncthreads();
-  row_dots<HD>(D, dos, o, b, h, H, q0, S);
-
-  float acc[8][NC];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[a][c] = 0.0f;
-
-  int n_k = (S + BK - 1) / BK;
-  if (causal && !POS) n_k = min(n_k, min(q0 + BQ - 1, S - 1) / BK + 1);
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();            // the previous tile's reads are done
-    load_rows<HD, BK>(ks, k, b, kvh, KV, k0, S);
-    load_rows<HD, BK>(vs, v, b, kvh, KV, k0, S);
-    if (POS)
-      for (int c = threadIdx.x; c < BK; c += THREADS)
-        kvpos[c] = k0 + c < S ? kv_pos[(long long)b * S + k0 + c] : 0;
-    __syncthreads();
-    p_and_ds<HD, POS>(nullptr, dss, qs, dos, ks, vs, lse_s, D, qpos, kvpos,
-                      q0, k0, S, causal, scale, inv_s);
-    __syncthreads();
-    // dq_i += ds_ij k_j: rows i = ty + 8a, columns d = tx + 32c
-#pragma unroll 2
-    for (int c0 = 0; c0 < BK; ++c0) {
-      float kr[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kr[c] = ks[c0 * ROW + tx + 32 * c];
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const float ds = dss[(ty + 8 * a) * BK + c0];
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          acc[a][c] = __fmaf_rn(ds, kr[c], acc[a][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int i = q0 + ty + 8 * a;
-    if (i >= S) continue;
-    const long long row = (((long long)b * S + i) * H + h) * HD;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      store(dq + row + tx + 32 * c, __fmul_rn(acc[a][c], scale));
-  }
-}
-
-template <int HD, typename T, bool POS>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dO, const float* lse, const int* q_pos,
-           const int* kv_pos, void* dq, void* dk, void* dv, int B, int S,
-           int H, int KV, float scale, int causal, cudaStream_t stream) {
-  constexpr int SMEM = Smem<HD>::BYTES;
-  auto dkdv = flash_attention_bwd_f32_dkdv_kernel<HD, T, POS>;
-  auto dqk = flash_attention_bwd_f32_dq_kernel<HD, T, POS>;
+           const int* kv_pos, void* dq, void* dk, void* dv, void* rec, int B,
+           int S, int H, int KV, float scale, int causal,
+           cudaStream_t stream) {
+  using DT = DqF32<HD>;
+  using KT = KvF32<HD>;
+  const void* ptrs[9] = {q, k, v, o, dO, dq, dk, dv, rec};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+  auto dqk = q_pos ? flash_attention_bwd_f32_dq_kernel<HD, true>
+                   : flash_attention_bwd_f32_dq_kernel<HD, false>;
+  auto dkdv = q_pos ? flash_attention_bwd_f32_dkdv_kernel<HD, true>
+                    : flash_attention_bwd_f32_dkdv_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, DT::SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
-        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, KT::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const T *q_ = (const T*)q, *k_ = (const T*)k, *v_ = (const T*)v,
-          *o_ = (const T*)o, *do_ = (const T*)dO;
-  dkdv<<<dim3((unsigned)((S + BK - 1) / BK), (unsigned)(B * KV)), THREADS,
-         SMEM, stream>>>(q_, k_, v_, o_, do_, lse, q_pos, kv_pos, (T*)dk,
-                         (T*)dv, S, H, KV, scale, causal);
+  dqk<<<dim3((unsigned)(B * H), (unsigned)((S + DT::BQ - 1) / DT::BQ)),
+        DT::THREADS, DT::SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dO, lse, q_pos, kv_pos, (float*)dq, (float4*)rec, S, H,
+      H / KV, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dqk<<<dim3((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * H)), THREADS, SMEM,
-        stream>>>(q_, k_, v_, o_, do_, lse, q_pos, kv_pos, (T*)dq, S, H, KV,
-                  scale, causal);
+  dkdv<<<dim3((unsigned)(B * KV), (unsigned)((S + KT::BKV - 1) / KT::BKV)),
+         KT::THREADS, KT::SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dO,
+      (const float4*)rec, kv_pos, (float*)dk, (float*)dv, S, H, KV, scale,
+      causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dO, const void* lse, const void* q_pos,
-             const void* kv_pos, void* dq, void* dk, void* dv, int B, int S,
-             int H, int KV, int hd, float scale, int causal, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || (long long)B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const float* l = (const float*)lse;
-  const int *qp = (const int*)q_pos, *kp = (const int*)kv_pos;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (hd == 64)
-    return qp ? launch<64, T, true>(q, k, v, o, dO, l, qp, kp, dq, dk, dv, B,
-                                    S, H, KV, scale, causal, st)
-              : launch<64, T, false>(q, k, v, o, dO, l, qp, kp, dq, dk, dv,
-                                     B, S, H, KV, scale, causal, st);
-  if (hd == 128)
-    return qp ? launch<128, T, true>(q, k, v, o, dO, l, qp, kp, dq, dk, dv,
-                                     B, S, H, KV, scale, causal, st)
-              : launch<128, T, false>(q, k, v, o, dO, l, qp, kp, dq, dk, dv,
-                                      B, S, H, KV, scale, causal, st);
-  return (int)cudaErrorInvalidValue;
-}
+}  // namespace tf32
 
 // ------------------------------------ bf16, on the tensor cores (Hopper) --
 
@@ -1119,17 +1729,30 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q_pos and kv_pos both null or both (B, S) int32
+// q_pos and kv_pos both null or both (B, S) int32; scratch: (B, H, S, 4)
+// f32, each q row's record, written by the dq pass and read by the dk/dv
+// pass
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* dO, const void* lse,
                                        const void* q_pos, const void* kv_pos,
-                                       void* dq, void* dk, void* dv, int B,
-                                       int S, int H, int KV, int hd,
-                                       float scale, int causal,
-                                       void* stream) {
-  return dispatch<float>(q, k, v, o, dO, lse, q_pos, kv_pos, dq, dk, dv, B,
-                         S, H, KV, hd, scale, causal, stream);
+                                       void* dq, void* dk, void* dv,
+                                       void* scratch, int B, int S, int H,
+                                       int KV, int hd, float scale,
+                                       int causal, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (KV <= 0 || H % KV != 0 || (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float* l = (const float*)lse;
+  const int *qp = (const int*)q_pos, *kp = (const int*)kv_pos;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 64)
+    return tf32::launch<64>(q, k, v, o, dO, l, qp, kp, dq, dk, dv, scratch,
+                            B, S, H, KV, scale, causal, st);
+  if (hd == 128)
+    return tf32::launch<128>(q, k, v, o, dO, l, qp, kp, dq, dk, dv, scratch,
+                             B, S, H, KV, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // scratch: (B, H, S, 4) f32, each q row's record, written by the dq pass

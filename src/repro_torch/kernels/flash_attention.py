@@ -223,9 +223,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     """(dq, dk, dv) of the forward on CUDA tensors from its output ``o``,
     the output's gradient ``do`` and the row logsumexp ``lse`` (B, H, S)
     f32: the backward kernel, two passes without atomics (csrc/
-    flash_attention_bwd.cu), so two calls give the same bits; bf16 on the
-    tensor cores (``wgmma`` and TMA, p and ds rounded once to bf16 for the
-    second-stage products), f32 on the CUDA cores. CPU tensors take
+    flash_attention_bwd.cu), so two calls give the same bits, both types on
+    the tensor cores: bf16 on ``wgmma`` and TMA, p and ds rounded once to
+    bf16 for the second-stage products; f32 as 3xTF32 on ``wgmma``, every
+    operand split into tf32 hi + lo. CPU tensors take
     ``flash_attention_bwd_plain``; anything the kernel does not take, and
     a launch it refuses (a misaligned operand among them), raises."""
     _check(q, k, v, positions, kv_positions)
@@ -253,15 +254,13 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     kv_pos = pos if kv_positions is None else \
         _device_positions(kv_positions, q)
     scale = float(np.float32(1.0 / np.sqrt(hd)))
+    # each q row's record (-lse log2 e; D, or 1/S for a row that saw no
+    # key; its q position), written by the dq pass for the dk/dv pass
+    scratch = torch.empty((B, H, S, 4), dtype=torch.float32,
+                          device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), _ptr(pos), _ptr(kv_pos),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
-    if q.dtype == torch.bfloat16:
-        # each q row's record (-lse log2 e; D, or 1/S for a row that saw no
-        # key; its q position), written by the dq pass for the dk/dv pass
-        scratch = torch.empty((B, H, S, 4), dtype=torch.float32,
-                              device=q.device)
-        ptrs.append(scratch.data_ptr())
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr()]
     fn = getattr(build.load("flash_attention_bwd"), _BWD_FN[q.dtype])
     with torch.cuda.device(q.device):
         err = fn(*ptrs, B, S, H, KV, hd, scale, int(bool(causal)),

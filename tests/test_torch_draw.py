@@ -237,3 +237,29 @@ def test_build_hash_covers_the_included_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     assert build._target("prng_draw") != before
     assert "prng_draw" in build.KERNELS
+
+
+def test_build_keeps_nvccs_output_beside_the_library(tmp_path, monkeypatch):
+    """A finished build saves nvcc's output (ptxas's register and spill
+    report) beside its library; a cached library is read back with it and
+    not compiled again, and one without its output is built anew."""
+    import subprocess
+    import sys
+    import time
+    out = tmp_path / "libprng_draw-0123456789ab.so"
+    tmp = out.with_suffix(".1.tmp")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys; print('ptxas info: Used 40 "
+         "registers'); open(sys.argv[1], 'w').write('elf')", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    build._finish("prng_draw", (proc, tmp, out, time.perf_counter()))
+    assert out.read_text() == "elf" and not tmp.exists()
+    monkeypatch.setattr(build, "_target", lambda name: out)
+    assert build._start("prng_draw") is None
+    assert build.build_output("prng_draw") == "ptxas info: Used 40 registers\n"
+    out.with_suffix(".log").unlink()
+    monkeypatch.setattr(build, "_nvcc", lambda: sys.executable)
+    monkeypatch.setattr(build, "NVCC_FLAGS", ("-c", "pass"))
+    job = build._start("prng_draw")
+    assert job is not None
+    job[0].communicate()

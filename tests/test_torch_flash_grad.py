@@ -278,7 +278,7 @@ def test_bf16_backward_kernel_numerics_within_the_card_tolerance(
 def test_the_backward_library_hashes_its_header_and_binds_its_entries():
     """The backward's source includes csrc/hopper.cuh, which the build's
     hash covers; each C entry takes as many arguments as its ctypes
-    signature declares (the bf16 entry one more: the records' scratch)."""
+    signature declares, both the records' scratch after dv."""
     import re
 
     from repro_torch.kernels import build
@@ -289,5 +289,38 @@ def test_the_backward_library_hashes_its_header_and_binds_its_entries():
     for fn, argtypes in sigs.items():
         params = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src).group(1)
         assert len(params.split(",")) == len(argtypes)
-    assert len(sigs["flash_attention_bwd_bf16"]) == \
-        len(sigs["flash_attention_bwd_f32"]) + 1
+    for fn in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16"):
+        params = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src).group(1)
+        names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+        assert names[names.index("dv") + 1] == "scratch"
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-1.6b", "hymba-1.5b",
+                                  "whisper-small", "qwen3-moe-30b-a3b"])
+def test_flash_layers_counts_the_models_flash_attention_calls(arch,
+                                                              monkeypatch):
+    """chip_smoke.flash_layers, which its launch formulas and phase 14 (c)'s
+    exact count of backward launches read, is the number of
+    ops.flash_attention calls in one loss of each family's reduced model
+    (the encoder's too; none for an ssm or under a sliding window)."""
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import make_batch_arrays
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng
+
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    params = step_lib.make_train_state(model, prng.key(0), cpu).params
+    batch = make_batch_arrays(cfg, 1, 16, 0, cpu)
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    with torch.no_grad():
+        model.loss(params, batch)
+    assert len(calls) == cs.flash_layers(cfg)
+    assert cs.flash_layers(cfg) == {"rwkv6-1.6b": 0, "hymba-1.5b": 0,
+                                    "whisper-small": 4}.get(arch, 2)

@@ -357,7 +357,8 @@ def test_flash_attention_kernels_run_on_the_tensor_cores(cuda):
     """Each of the built forward library's kernel functions (bf16 and f32,
     hd 64 and 128, with and without positions) holds HGMMA (wgmma)
     instructions in its own SASS; each bf16 function of the backward's
-    two passes holds HGMMA and UTMALDG (TMA loads)."""
+    two passes holds HGMMA and UTMALDG (TMA loads), each f32 one HGMMA
+    (3xTF32)."""
     import shutil
     import subprocess
     from pathlib import Path
@@ -382,7 +383,11 @@ def test_flash_attention_kernels_run_on_the_tensor_cores(cuda):
             ("flash_attention_bwd", "flash_attention_bwd_bf16_dq_kernel",
              ("HGMMA", "UTMALDG")),
             ("flash_attention_bwd", "flash_attention_bwd_bf16_dkdv_kernel",
-             ("HGMMA", "UTMALDG"))):
+             ("HGMMA", "UTMALDG")),
+            ("flash_attention_bwd", "flash_attention_bwd_f32_dq_kernel",
+             ("HGMMA",)),
+            ("flash_attention_bwd", "flash_attention_bwd_f32_dkdv_kernel",
+             ("HGMMA",))):
         # hd 64 and 128, each without and with explicit positions
         mine = [text for name, text in functions(lib).items()
                 if kernel in name]
@@ -764,12 +769,14 @@ def _rel(got, want) -> float:
                  / want.float().abs().max())
 
 
-# (1, 900, ...): the last kv block's second consumer warpgroup holds no row
+# (1, 900, ...): the last kv block's second consumer warpgroup holds no row;
+# (4, 2048, 16, 16, 64): the lm shape (qwen1.5-0.5b, batch 4)
 @pytest.mark.parametrize("B,S,H,KV,hd", [(2, 256, 4, 4, 64),
                                          (1, 200, 8, 2, 128),
                                          (2, 129, 4, 2, 64),
                                          (1, 1000, 8, 2, 128),
-                                         (1, 900, 4, 2, 128)])
+                                         (1, 900, 4, 2, 128),
+                                         (4, 2048, 16, 16, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_kernel_vs_plain(cuda, B, S, H, KV, hd,
@@ -812,6 +819,25 @@ def test_flash_attention_bwd_bf16_raises_on_a_misaligned_operand(cuda):
     out, lse = flash_attention._launch_fwd(q, k, v, True, None, True)
     odd = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
     odd = odd[1:].view(q.shape)
+    odd.copy_(do)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    n0 = flash_attention.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention.flash_attention_bwd(q, k, v, out, odd, lse, True)
+    assert flash_attention.flash_attention_bwd.launches == n0
+
+
+def test_flash_attention_bwd_f32_raises_on_a_misaligned_operand(cuda):
+    """The f32 backward's producer loads 16 bytes at a time: a contiguous
+    view that starts 4 bytes into its storage is refused by the kernel's
+    launcher, and the wrapper raises, launching nothing and falling back
+    to nothing."""
+    B, S, H, hd = 1, 64, 2, 64
+    g = torch.Generator(cuda).manual_seed(12)
+    q, k, v, do = (torch.randn(B, S, H, hd, device=cuda, generator=g)
+                   for _ in range(4))
+    out, lse = flash_attention._launch_fwd(q, k, v, True, None, True)
+    odd = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
     odd.copy_(do)
     assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
     n0 = flash_attention.flash_attention_bwd.launches
