@@ -135,7 +135,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parent launches nothing during a federation, and no process is left
    alive after one. Host-clock ms per party update of (a) and (c) beside
    the in-process ``run_serial``'s.
-8. At the end, after 9 to 13: the ``{"kernels": [...]}`` line, the card
+8. At the end, after 9 to 15: the ``{"kernels": [...]}`` line, the card
    line, and last ``{"ok": true, "device": {...}}``.
 9. Serving: federated inference (``serving.federated``, and over TCP
    ``runtime.run_tcp_serving``) on the runtime phase's D7 FCN without DP
@@ -245,6 +245,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    run on both from the card's state, losses within 1e-4; and
    qwen1.5-0.5b with explicit positions, a loss mask and the chunked
    loss.
+15. Data parallel (``data_parallel_phase``) on ``torch.distributed``, each
+   run of ranks in its own processes (``launch.mesh.spawn_ranks``) with a
+   time limit: (a) one rank on an NCCL group: ``asyrevel.train_sharded``
+   on the scan phase's defended D7 FCN (asyrevel, K = 1, 25 steps)
+   bitwise ``asyrevel.train`` (losses and state digest), launches exact
+   (``scan_launches``) for both, one all_reduce a server forward; (d) in
+   the same process, the sharded vfl-zoo step of reduced qwen1.5-0.5b (f32,
+   fused int8) bitwise the unsharded step for 2 steps. (b) Two ranks
+   sharing the card under gloo, the same run: the ranks' losses and states
+   bitwise equal, each rank's launches the unsharded formula (every rank
+   draws the global indices), all_reduces exactly the server forwards,
+   losses within 1e-3 of the same two ranks on the CPU. (c) The launcher
+   with ``--data-parallel 2`` on qwen1.5-0.5b at full width and depth
+   (phase 4's flags, batch 4 as 2 + 2), 3 steps: each rank's launches
+   exact (``ZOO_*_PER_STEP`` and ``zoo_init_draws``), the ranks' state
+   digests equal, h finite and the first within 1.0 of ln V; s per step,
+   each rank's peak memory and all_reduce host seconds a step.
 
 ``--profile`` runs none of that: it builds the kernels, warms up, and
 traces 2 serial rounds (16 party updates) of each D7 cell, the defended
@@ -300,6 +317,20 @@ INT32_OPS_PER_WORD = 41
 # erf_inv's Horner, two products, the add) is ~64, Laplace's ~48; clip 2;
 # the int8 quantize (divide, add, floor, clamp) 6.
 OPS_NOISE = {"gaussian": 64, "laplace": 48}
+# the draw kernel's normal chain (prng.cuh), counted from its source, every
+# rounding its own operation (--fmad=false), an FMA two FLOPs: besides
+# threefry's 41, 2 INT32 operations a word map the bits to a uniform (shift,
+# or) and 3 pick log's exponent (shift, subtract, and-or); 54 f32 FLOPs a
+# word (the uniform's subtract, the open interval's product and add,
+# erf_inv's u^2, log1p's 12-FMA quotient of polynomials and its products and
+# adds, erf_inv's 8-FMA Horner and w - 2.5, the products by u and sqrt(2))
+# and 31 more (XLA's log of 1 + x: its three 2-FMA polynomials and the rest)
+# on the words whose u^2 >= sqrt(2) - 1, where log1p takes the log: a
+# share 1 - sqrt(sqrt(2) - 1) of uniform words. erf_inv's sqrt branch
+# (0.34% of words), compares, selects and conversions are not counted
+NORMAL_LOG_SHARE = 1.0 - math.sqrt(math.sqrt(2.0) - 1.0)
+NORMAL_INT32_OPS = INT32_OPS_PER_WORD + 2 + 3 * NORMAL_LOG_SHARE
+NORMAL_F32_FLOPS = 54 + 31 * NORMAL_LOG_SHARE
 
 
 def log(msg):
@@ -745,7 +776,9 @@ SERVING_ENCODE_SIZES = (1, 7, 8, 63, 64)
 def draw_phase(dev, int_rate):
     """The draw kernel against the eager chain (bitwise), with its times
     and bound: 4 bytes written and 41 INT32-pipe operations a word, and the
-    normal chain's f32 operations."""
+    normal chain's f32 operations; the normal rows also carry the whole
+    chain's operations (``NORMAL_INT32_OPS``, ``NORMAL_F32_FLOPS``) as the
+    two pipes' times and their sum."""
     import torch
     from repro_torch.kernels import prng_draw
     from repro_torch.utils import prng
@@ -772,6 +805,15 @@ def draw_phase(dev, int_rate):
                            "rademacher": 1}[mode]
             bound, by, parts = ops_bound(4 * n, INT32_OPS_PER_WORD * n,
                                          f32_ops, int_rate)
+            if mode == "normal":
+                # the whole chain's bound: its INT32 and f32 operations
+                # (NORMAL_*) at their rates, one after the other, beside
+                # the pipes-overlapped one
+                _, _, whole = ops_bound(4 * n, NORMAL_INT32_OPS * n,
+                                        NORMAL_F32_FLOPS * n, int_rate)
+                parts = {**parts, "whole_int32_ms": whole["int32_ms"],
+                         "whole_f32_ms": whole["f32_ms"],
+                         "whole_sum_ms": whole["int32_ms"] + whole["f32_ms"]}
             big = n >= 1 << 24
             row = {"kernel": "prng_draw", "n": n, "offset": offset,
                    "mode": mode, "bitwise": True, "kernel_ms": time_ms(kernel),
@@ -3811,6 +3853,243 @@ def d7_data(q):
     return Xp, y, spec, pad
 
 
+# ------------------------------------------------------ data-parallel phase --
+
+# (a), (b): the scan phase's first run, asyrevel at K = 1 for 25 steps on the
+# defended D7 FCN
+DP_SCAN = SCAN_RUNS[0]
+# (b): the card's world-2 losses against the same world-2 run on the CPU
+DP_CPU_TOL = 1e-3
+# (c): the launcher's vfl-zoo steps at full size over 2 ranks
+DP_ZOO_STEPS = 3
+DP_WORLD = 2
+DP_RANK_TIMEOUT_S = 300.0
+
+
+def dp_zoo_world1(group):
+    """(d): 2 steps of reduced qwen1.5-0.5b (f32, fused int8, S 128) on the
+    sharded vfl-zoo step of a one-rank group and on the unsharded step,
+    each from the other's state: h and the state bitwise equal."""
+    import numpy as np
+    from repro_torch.configs import VFLConfig, get_config
+    from repro_torch.core import asyrevel
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import draw_batch, make_batch_arrays
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import prng
+
+    dev = group.device
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    vfl = VFLConfig(num_parties=4, mu=1e-3, lr_party=1e-2, lr_server=1e-2 / 4,
+                    fused=True, codec="int8")
+    model = build_model(cfg)
+    _, init, step = step_lib.make_vfl_zoo_step(model, vfl)
+    _, _, sharded = step_lib.make_vfl_zoo_step(model, vfl, group)
+    data = make_batch_arrays(cfg, 64, 128, 0, dev)
+    rng = np.random.default_rng(0)
+    state, hs, same = init(prng.key(0), dev), [], True
+    for _ in range(2):
+        batch = draw_batch(rng, data, 4)
+        s1, h1 = step(state, batch)
+        s2, h2 = sharded(state, batch)
+        same = same and bitwise_equal(h1, h2) and \
+            asyrevel.state_digest(s1) == asyrevel.state_digest(s2)
+        state = s1
+        hs.append(float(h1))
+    return {"h": hs, "bitwise": same}
+
+
+def dp_scan_rank(rank, world, rendezvous, device, zoo_check):
+    """A rank of phase 15 (a) and (b), in its own process: the scan phase's
+    defended D7 FCN (``DP_SCAN``) through ``asyrevel.train_sharded`` on a
+    data group of ``world`` ranks on ``device`` (None: the card), with the
+    launch counters zeroed just before and read just after, the server
+    forwards counted; at one rank ``asyrevel.train`` of the same run too,
+    and with ``zoo_check`` (d). Returns the rank's numbers, losses and
+    state digests."""
+    import torch
+    from repro_torch.configs import PaperFCNConfig
+    from repro_torch.core import asyrevel
+    from repro_torch.core.vfl import PaperFCNModel
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.utils import prng
+
+    alg, K, steps = DP_SCAN
+    q, batch = 8, 2048
+    group = make_data_mesh(world, rank, rendezvous, device)
+    try:
+        dev = group.device
+        Xp, y, spec, _ = d7_data(q)
+        model = PaperFCNModel(PaperFCNConfig(num_features=spec.d,
+                                             num_classes=spec.classes,
+                                             num_parties=q))
+        forwards, inner = [0], model.server_forward
+
+        def counted(*a):
+            forwards[0] += 1
+            return inner(*a)
+        model.server_forward = counted
+        data = {"x": torch.as_tensor(Xp, device=dev),
+                "y": torch.as_tensor(y, device=dev)}
+        vfl = scan_config(K, True, scan_dp(steps, K))
+        out = {"backend": group.backend, "device": str(dev)}
+
+        def run(fn, **kw):
+            zero_launches()
+            forwards[0] = 0
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, losses = fn(model, vfl, data, prng.key(0), steps, batch,
+                               algorithm=alg, **kw)
+            losses = losses.cpu()
+            return {"ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+                    "losses": losses.tolist(), "launches": read_launches(),
+                    "digest": asyrevel.state_digest(state),
+                    "server_forwards": forwards[0]}
+        if world == 1:
+            out["train"] = run(asyrevel.train, device=dev)
+        reduces = group.all_reduces
+        out["sharded"] = run(asyrevel.train_sharded, group=group)
+        out["sharded"]["all_reduces"] = group.all_reduces - reduces
+        out["sharded"]["all_reduce_s"] = group.all_reduce_s
+        if zoo_check:
+            out["zoo_world1"] = dp_zoo_world1(group)
+        return out
+    finally:
+        group.close()
+
+
+def data_parallel_phase(dev):
+    """The data-parallel path on ``torch.distributed`` (module docstring,
+    phase 15), each rank run in its own processes with a time limit."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    alg, K, steps = DP_SCAN
+    q = 8
+    want = {name: n * steps for name, n in
+            scan_launches(alg, K, True, q).items()}
+    want["prng_draw"] += fcn_init_draws(q)
+    forwards = steps * (1 + K + 1)      # h, K h_bar, h_hat a step
+    stats = {}
+
+    # (a) one rank on an NCCL group: train_sharded bitwise train; (d)
+    t0 = time.perf_counter()
+    (one,) = spawn_ranks(dp_scan_rank, 1, (None, True),
+                         timeout_s=DP_RANK_TIMEOUT_S)
+    wall_a = time.perf_counter() - t0
+    tr, sh = one["train"], one["sharded"]
+    log(f"[data_parallel] (a) world 1 on {one['backend']} ({one['device']}):"
+        f" train {tr['ms_per_step']:.3f} ms a step, train_sharded "
+        f"{sh['ms_per_step']:.3f}, launches {sh['launches']}, all_reduces "
+        f"{sh['all_reduces']}, wall {wall_a:.1f} s")
+    if one["backend"] != "nccl":
+        raise AssertionError(f"world 1 ran on {one['backend']}, not nccl")
+    if tr["losses"] != sh["losses"] or tr["digest"] != sh["digest"]:
+        raise AssertionError("world-1 train_sharded is not bitwise train")
+    if tr["launches"] != want or sh["launches"] != want:
+        raise AssertionError(f"world-1 launches {tr['launches']}, "
+                             f"{sh['launches']}, want {want}")
+    if not sh["all_reduces"] == sh["server_forwards"] == forwards:
+        raise AssertionError(f"world-1 all_reduces {sh['all_reduces']}, "
+                             f"server forwards {sh['server_forwards']}")
+    zoo1 = one["zoo_world1"]
+    if not zoo1["bitwise"]:
+        raise AssertionError(f"(d) world-1 sharded vfl-zoo step is not the "
+                             f"unsharded step: h {zoo1['h']}")
+    log(f"[data_parallel] (d) world-1 sharded vfl-zoo step bitwise the "
+        f"unsharded step, reduced qwen1.5-0.5b, h {zoo1['h']}")
+    stats["world1"] = {"train_ms_per_step": tr["ms_per_step"],
+                       "sharded_ms_per_step": sh["ms_per_step"],
+                       "launches": sh["launches"], "wall_s": wall_a,
+                       "zoo_h": zoo1["h"]}
+
+    # (b) two ranks sharing the card under gloo, and the same on the CPU
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_scan_rank, DP_WORLD, (None, False),
+                        timeout_s=DP_RANK_TIMEOUT_S)
+    wall_b = time.perf_counter() - t0
+    cpu = spawn_ranks(dp_scan_rank, DP_WORLD, ("cpu", False),
+                      timeout_s=DP_RANK_TIMEOUT_S)
+    runs = [r["sharded"] for r in ranks]
+    gap = max(abs(a - b) for a, b in zip(runs[0]["losses"],
+                                         cpu[0]["sharded"]["losses"]))
+    log(f"[data_parallel] (b) world {DP_WORLD} on {ranks[0]['backend']} "
+        f"({[r['device'] for r in ranks]}): ms a step "
+        f"{[round(r['ms_per_step'], 3) for r in runs]}, all_reduce s "
+        f"{[round(r['all_reduce_s'], 4) for r in runs]}, launches "
+        f"{runs[0]['launches']}, card vs CPU max loss gap {gap:.3g}, wall "
+        f"{wall_b:.1f} s")
+    if ranks[0]["backend"] != "gloo":
+        raise AssertionError(f"two ranks on one card ran on "
+                             f"{ranks[0]['backend']}, not gloo")
+    for r, run in enumerate(runs):
+        if run["digest"] != runs[0]["digest"] or \
+                run["losses"] != runs[0]["losses"]:
+            raise AssertionError(f"world-2 rank {r}'s state is not rank 0's")
+        if run["launches"] != want:
+            raise AssertionError(f"world-2 rank {r} launches "
+                                 f"{run['launches']}, want {want}")
+        if not run["all_reduces"] == run["server_forwards"] == forwards:
+            raise AssertionError(f"world-2 rank {r}: all_reduces "
+                                 f"{run['all_reduces']}, server forwards "
+                                 f"{run['server_forwards']}, want {forwards}")
+    if not all(map(math.isfinite, runs[0]["losses"])) or \
+            not gap < DP_CPU_TOL:
+        raise AssertionError(f"world-2 card vs CPU losses differ by {gap}")
+    stats["world2"] = {"ms_per_step": [r["ms_per_step"] for r in runs],
+                       "all_reduce_s": [r["all_reduce_s"] for r in runs],
+                       "launches": runs[0]["launches"],
+                       "card_vs_cpu_gap": gap, "wall_s": wall_b,
+                       "h_first": runs[0]["losses"][0],
+                       "h_last": runs[0]["losses"][-1]}
+
+    # (c) the launcher at full size over two ranks on the card
+    cfg = get_config("qwen1.5-0.5b")
+    argv = ZOO_ARGS + ["--steps", str(DP_ZOO_STEPS), "--log-every", "1",
+                       "--data-parallel", str(DP_WORLD)]
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    wall_c = time.perf_counter() - t0
+    h = res["h"]
+    want_zoo = {"flash_attention": ZOO_FLASH_PER_STEP * DP_ZOO_STEPS,
+                "defended_encode": ZOO_ENCODE_PER_STEP * DP_ZOO_STEPS,
+                "dual_matmul": 0, "zo_update": 0,
+                "prng_draw": ZOO_DRAWS_PER_STEP * DP_ZOO_STEPS
+                + zoo_init_draws(cfg.num_layers, 4)}
+    per = [{"rank": r["rank"], "device": r["device"],
+            "peak_gb": r["peak_bytes"] / 1e9,
+            "all_reduce_s_per_step": r["all_reduce_s"] / DP_ZOO_STEPS,
+            "launches": r["launches"]} for r in res["ranks"]]
+    log(f"[data_parallel] (c) launcher --data-parallel {DP_WORLD}, "
+        f"qwen1.5-0.5b at full size, batch 4 over {DP_WORLD} ranks: setup "
+        f"{res['setup_s']:.2f} s, s per step "
+        f"{[round(t, 4) for t in res['step_s']]}, h {h}, per rank "
+        f"{json.dumps(per)}, wall {wall_c:.1f} s")
+    for r in res["ranks"]:
+        if r["launches"] != want_zoo:
+            raise AssertionError(f"(c) rank {r['rank']} launches "
+                                 f"{r['launches']}, want {want_zoo}")
+        if r["digest"] != res["ranks"][0]["digest"]:
+            raise AssertionError(f"(c) rank {r['rank']}'s state is not "
+                                 "rank 0's")
+    if len(h) != DP_ZOO_STEPS or not all(map(math.isfinite, h)) or \
+            not abs(h[0] - math.log(cfg.vocab_size)) < 1.0:
+        raise AssertionError(f"(c) h {h}: not finite, or the first not "
+                             f"within 1.0 of ln V")
+    stats["launcher"] = {"steps": DP_ZOO_STEPS, "h": h,
+                         "step_s": res["step_s"], "setup_s": res["setup_s"],
+                         "ranks": per, "wall_s": wall_c}
+    return stats
+
+
 PROFILE_SPANS = ("prng.bits", "prng.sample_direction")
 PORT_KERNEL_FUNCTIONS = {"defended_encode": ("cast_kernel", "int8_kernel"),
                          "zo_update": ("zo_update",),
@@ -4223,6 +4502,8 @@ def main() -> int:
     launches["flash_attention_bwd"], lm_train = lm_train_phase(dev)
     log(json.dumps({"lm_train": lm_train}))
     clock.lap("lm_train")
+    log(json.dumps({"data_parallel": data_parallel_phase(dev)}))
+    clock.lap("data_parallel")
     log(json.dumps({"phase_s": clock.laps}))
 
     sources = {

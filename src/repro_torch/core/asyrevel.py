@@ -27,12 +27,21 @@ The steps are functional, like the reference's: each returns a new state
 and leaves the old one as it was. The activation and delay draws are
 jax's categorical and randint on the step's keys (utils/prng.py), q + 1
 values made on the host, so m_t and the delays are Python ints. Every
-model of core/vfl.py runs here, ``num_directions`` K >= 1 (core/exchange.py). The sharded path
-(the reference's ``PmeanVFLModel``, ``ShardFoldedExchange`` and
-``train_sharded``) is not ported yet.
+model of core/vfl.py runs here, ``num_directions`` K >= 1 (core/exchange.py).
+
+The sharded path is the reference's data-parallel scan on
+``torch.distributed`` (launch/mesh.py's ``DataGroup``): ``train_sharded``
+draws each step's global batch indices on every rank and steps on the
+rank's contiguous slice; ``PmeanVFLModel`` turns each server loss into
+the global batch mean (an ``all_reduce`` and a division), so every rank
+forms the same coefficients and the replicated parameters stay bitwise
+equal with no collective on a parameter; ``ShardFoldedExchange`` folds
+the rank into every stochastic stream of an upload (``shard_wrap``, only
+for more than one rank). At one rank it is bitwise ``train``.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple
 
 import torch
@@ -229,5 +238,116 @@ def train(model, vfl: VFLConfig, data, key, steps: int, batch_size: int,
         idx = batch_indices(key, t, batch_size, n, device)
         batch = {k: a[idx] for k, a in data.items()}
         state, h = step_fn(model, vfl, state, batch, ex)
+        losses.append(h)
+    return state, torch.stack(losses)
+
+
+def state_digest(state: AsyState) -> str:
+    """sha256 of a state's bits: the step, then every leaf of w0, the
+    party blocks and the ring buffer in flatten order (equal digests,
+    bitwise equal states)."""
+    h = hashlib.sha256(str(state.step).encode())
+    for tree in (state.w0, state.parties, state.hist):
+        for t in trees.leaves(tree):
+            h.update(t.detach().cpu().contiguous().reshape(-1)
+                     .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+# ------------------------------------------------- sharded scale path -----
+
+class PmeanVFLModel:
+    """Data-parallel view of a VFL model on one rank of ``group``: every
+    method is the wrapped model's but ``server_forward``, which returns
+    the GLOBAL batch-mean loss, the rank's loss summed over the ranks
+    (``group.all_reduce_sum``) and divided by the world size as a device
+    tensor (a true division, as the reference's ``pmean``; CUDA divides by
+    a Python scalar through its reciprocal). Every rank gets the same
+    bits, so every rank forms the same two-point coefficients; the c
+    values never leave their rank."""
+
+    def __init__(self, inner, group):
+        self.inner = inner
+        self.group = group
+        self.num_parties = inner.num_parties
+
+    def server_forward(self, w0, cs, y):
+        total = self.group.all_reduce_sum(self.inner.server_forward(w0, cs,
+                                                                    y))
+        return total / torch.full((), self.group.world, dtype=total.dtype,
+                                  device=total.device)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class ShardFoldedExchange(ZOExchange):
+    """The exchange of one rank of a data group of more than one: folds
+    the rank into ``_codec_key``, so the per-rank slices of one upload
+    draw independent int8 rounding and, through ``_dp_key``, independent
+    DP noise, fused or not (the same replicated step key would otherwise
+    hand every rank the same draws). Keeps the base's codec, DP and
+    ``fused``, and meters nothing. Only for more than one rank:
+    fold_in(key, 0) is not the identity."""
+
+    def __init__(self, base: ZOExchange, rank: int):
+        super().__init__(mu=base.mu, direction=base.direction,
+                         lam=base.lam, num_directions=base.num_directions,
+                         seed_replay=base.seed_replay, codec=base.codec,
+                         meter=None, dp=base.dp, fused=base.fused)
+        self.rank = int(rank)
+
+    def _codec_key(self, key):
+        if key is None:
+            return None
+        return prng.fold_in(key, self.rank)
+
+
+def shard_wrap(model, ex: ZOExchange, group):
+    """The one place the sharded wrapping is decided: ``(pmodel, ex,
+    world)``, the pmean view of ``model`` and, only when ``group`` has
+    more than one rank, the shard-folded exchange (at one rank the
+    sharded path stays bitwise the unsharded one). ``train_sharded`` and
+    launch/steps.py's ``make_vfl_zoo_step`` both call it."""
+    if group.world > 1:
+        ex = ShardFoldedExchange(ex, group.rank)
+    return PmeanVFLModel(model, group), ex, group.world
+
+
+def train_sharded(model, vfl: VFLConfig, data, key, steps: int,
+                  batch_size: int, algorithm: str = "asyrevel", group=None,
+                  device=None):
+    """Data-parallel ``train`` on one rank of ``group`` (launch/mesh.py;
+    every rank calls it with the same arguments): each step draws the
+    global batch indices as ``train`` does and takes the rank's slice
+    ``[r B / world, (r + 1) B / world)``, and the step runs on the wrapped
+    model and exchange of ``shard_wrap``. ``device`` defaults to the
+    rank's. Returns, on every rank, the replicated final state and the
+    per-step global losses. At one rank it is bitwise ``train``; at more,
+    the losses are the mean of the ranks' means, another order of the
+    same sum, and each rank's int8 and DP draws are its own."""
+    if algorithm not in STEP_FNS:
+        raise ValueError(f"unknown algorithm {algorithm!r}; have "
+                         f"{sorted(STEP_FNS)}")
+    if group is None:
+        raise ValueError("train_sharded runs on a data group "
+                         "(launch/mesh.make_data_mesh)")
+    world, r = group.world, group.rank
+    if batch_size % world:
+        raise ValueError(f"batch_size={batch_size} must divide over the "
+                         f"{world} ranks")
+    local = batch_size // world
+    device = resolve_device(group.device if device is None else device)
+    data = {k: torch.as_tensor(a).to(device) for k, a in data.items()}
+    n = next(iter(data.values())).shape[0]
+    state = init_state(model, vfl, key, device)
+    pmodel, ex, _ = shard_wrap(model, ZOExchange.from_config(vfl), group)
+    step_fn = STEP_FNS[algorithm]
+    losses = []
+    for t in range(steps):
+        idx = batch_indices(key, t, batch_size, n, device)
+        idx = idx[r * local:(r + 1) * local]
+        batch = {k: a[idx] for k, a in data.items()}
+        state, h = step_fn(pmodel, vfl, state, batch, ex)
         losses.append(h)
     return state, torch.stack(losses)

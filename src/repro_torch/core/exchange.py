@@ -236,14 +236,22 @@ class ZOExchange:
                    dp=vfl.dp, fused=vfl.fused)
 
     # ---- wire: party -> server (Algorithm 1 line 5) ----------------------
+    def _codec_key(self, key):
+        """The key a release's stochastic streams are drawn from: the
+        identity here. The sharded trainer's ``ShardFoldedExchange``
+        (core/asyrevel.py) folds the rank in, so the per-rank slices of one
+        upload draw independent rounding and noise; every stream of a
+        release, fused or not, goes through this one hook."""
+        return key
+
     def _dp_key(self, key):
         """The DP-noise key of one release: a named fold of the round key,
-        independent of the codec rounding stream."""
+        independent of the codec rounding stream, then ``_codec_key``."""
         if key is None:
             raise ValueError(
                 "a DP-defended exchange needs the round key on every "
                 "up-link (the noise draw is keyed like codec rounding)")
-        return prng.fold_name(key, "dp_noise")
+        return self._codec_key(prng.fold_name(key, "dp_noise"))
 
     def defend(self, c, key):
         """Clip-then-noise one up-link payload (identity when dp=None)."""
@@ -257,7 +265,8 @@ class ZOExchange:
         if self.fused:
             wire = fused_round.encode_up_fused(self, c, key)
         else:
-            wire = self.codec.encode(self.defend(c, key), key)
+            wire = self.codec.encode(self.defend(c, key),
+                                     self._codec_key(key))
         if self.meter is not None:
             self.meter.add_up(wire_nbytes(wire))
         return wire
@@ -270,7 +279,8 @@ class ZOExchange:
         """What the server sees after the up-link."""
         if self.fused:
             return fused_round.roundtrip_up_fused(self, c, key)
-        return self.codec.roundtrip(self.defend(c, key), key)
+        return self.codec.roundtrip(self.defend(c, key),
+                                    self._codec_key(key))
 
     # ---- wire: server -> party (Algorithm 1 line 8) ----------------------
     def send_down(self, *fvals):

@@ -196,14 +196,17 @@ defended_encode.launches = 0
 def _release_keys(ex, key):
     """The keys of the streams one release consumes, as the unfused seam
     keys them: dp noise off ``ex._dp_key`` (which raises on a missing round
-    key, same as the oracle; None for clip only), codec rounding off the
-    round key itself."""
+    key, same as the oracle; None for clip only), codec rounding off
+    ``ex._codec_key`` of the round key (None without one)."""
     dp_key = None
     if ex.dp is not None:
         dp_key = ex._dp_key(key)        # raises on key=None, like the oracle
         if float(ex.dp.noise_multiplier) == 0.0:
             dp_key = None
-    return dp_key, key if ex.codec.name == "int8" else None
+    rnd_key = None
+    if ex.codec.name == "int8" and key is not None:
+        rnd_key = ex._codec_key(key)
+    return dp_key, rnd_key
 
 
 def encode_up_fused(ex, c, key):

@@ -7,8 +7,9 @@ the reference's launch/steps.py:
   prefill_step — full-sequence forward (inference prefill)
   serve_step   — ONE new token against a KV cache / recurrent state
 
-The sharded (``mesh``) path is not ported yet: the steps run on one
-device.
+``vfl_zoo_step`` takes a data group (launch/mesh.py) for the sharded
+path, the reference's ``mesh=``: the batch shards over the ranks and the
+state replicates (core/asyrevel.py ``shard_wrap``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.core import asyrevel
 from repro_torch.core.exchange import ZOExchange
 from repro_torch.core.vfl import TransformerVFLModel
 from repro_torch.optim.optimizers import adam_init, adam_update
+from repro_torch.sharding.rules import shard_batch
 from repro_torch.utils import trees
 
 
@@ -99,18 +101,34 @@ def make_serve_step(model):
     return serve_step
 
 
-def make_vfl_zoo_step(model, vfl: VFLConfig):
+def make_vfl_zoo_step(model, vfl: VFLConfig, group=None):
     """The paper's AsyREVEL iteration wrapping ``model`` as F_0. The
     two-point round routes through one ZOExchange, whose up-link codec is
     vfl.codec. Returns (vfl_model, init(key, device), step(state,
-    batch))."""
+    batch)).
+
+    With ``group`` the step is the sharded path: it takes the GLOBAL
+    batch, keeps the rank's part (``sharding.rules.shard_batch``: each
+    leading batch dim divisible by the world size sharded, any other
+    whole) and steps the pmean model with the shard-folded exchange; h is
+    the global batch mean on every rank and the state stays replicated.
+    At one rank it is bitwise the unsharded step."""
     vm = TransformerVFLModel(model, vfl)
     ex = ZOExchange.from_config(vfl)
 
     def init(key, device):
         return asyrevel.init_state(vm, vfl, key, device)
 
-    def step(state, batch):
-        return asyrevel.asyrevel_step(vm, vfl, state, batch, ex)
+    if group is None:
+        def step(state, batch):
+            return asyrevel.asyrevel_step(vm, vfl, state, batch, ex)
+        return vm, init, step
 
-    return vm, init, step
+    pm, ex_sharded, world = asyrevel.shard_wrap(vm, ex, group)
+
+    def sharded_step(state, batch):
+        return asyrevel.asyrevel_step(
+            pm, vfl, state, shard_batch(batch, group.rank, world),
+            ex_sharded)
+
+    return vm, init, sharded_step

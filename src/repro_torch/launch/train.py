@@ -12,6 +12,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --mode vfl-zoo --transport tcp --parties 3 --steps 5 --dropout-at 2 \
       --ckpt-dir DIR                                # then --steps 8 --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+      --mode vfl-zoo --reduced --steps 4 --batch-size 4 --data-parallel 2 \
+      --device cpu                                  # 2 rank processes
 
 Mode ``lm`` (the default): first-order Adam training of an architecture
 of the registry, as the reference's ``repro.launch.train --mode lm``: the
@@ -72,8 +75,22 @@ writes ``alerts.jsonl`` and ``health.json`` into DIR (``python -m
 repro_torch.obs.live DIR``). Both change no bit of a run, and every
 metric line is also a ``metric`` record.
 
-The parser takes the reference's whole flag set. What the port does not
-run yet is refused with an error: ``--data-parallel``.
+``--data-parallel N`` runs the vfl-zoo step on the sharded path
+(launch/steps.py with a data group, launch/mesh.py): the launcher spawns N
+rank processes itself, rank r on ``cuda:{r % cards}`` (NCCL when every
+rank has a card of its own, gloo when ranks share one) or, with
+``--device cpu``, on the CPU (gloo). Every rank builds the same data and
+state from ``--seed``, draws the same global batch and steps on its
+contiguous slice; the server's losses are the global batch means and the
+state stays replicated with no collective on a parameter. Rank 0 logs,
+prices ``--network`` and, after a barrier, writes ``--ckpt-dir``; every
+rank restores ``--resume``; with ``--trace`` each rank writes its own
+trace file (role ``dp-rank<r>``). A rank that fails fails the run: the
+others are killed, and nothing finishes on fewer ranks. ``--batch-size``
+must divide by N; ``--data-parallel`` shards the in-memory vfl-zoo trainer
+only, so ``--mode lm``, ``--serve`` and ``--transport tcp`` refuse it.
+
+The parser takes the reference's whole flag set.
 """
 from __future__ import annotations
 
@@ -88,16 +105,17 @@ import torch
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs import DPConfig, VFLConfig, get_config
+from repro_torch.core import asyrevel
 from repro_torch.data.synthetic import make_lm_dataset
 from repro_torch.dp.accountant import resolve_dp
+from repro_torch.kernels import build, ops
 from repro_torch.launch import steps as step_lib
+from repro_torch.launch.mesh import make_data_mesh, spawn_ranks
 from repro_torch.models.model import build_model
 from repro_torch.obs.metrics import ObsMetricLogger
 from repro_torch.optim.schedules import make_schedule
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
-
-NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1)"
 
 
 def parse_args(argv=None):
@@ -251,8 +269,15 @@ def parse_args(argv=None):
     if args.opt_state_dtype != "f32" and args.mode != "lm":
         p.error("--opt-state-dtype quantizes the Adam moments of the "
                 "first-order lm trainer; vfl-zoo keeps no Adam state")
-    if args.data_parallel != 1:
-        p.error(f"--data-parallel {NOT_PORTED}")
+    if args.data_parallel < 1:
+        p.error("--data-parallel must be a positive rank count")
+    if args.data_parallel > 1:
+        if args.mode != "vfl-zoo" or args.serve is not None:
+            p.error("--data-parallel shards the in-memory --mode vfl-zoo "
+                    "trainer; --mode lm and --serve have no sharded path")
+        if args.batch_size % args.data_parallel:
+            p.error(f"--batch-size {args.batch_size} must divide by "
+                    f"--data-parallel {args.data_parallel}")
     if args.dp_delta is None:
         args.dp_delta = 1e-5
     return args
@@ -466,8 +491,10 @@ def main(argv=None) -> dict:
     resumed from (0 without --resume), "device": the torch device}, plus
     the priced wire (``price_network``) with --network; tcp returns the
     federation's losses and counters (``run_tcp``); --serve the serving
-    engine's metrics (``run_serve``). With ``--monitor`` each also
-    carries the collector's ``alerts``."""
+    engine's metrics (``run_serve``); ``--data-parallel`` rank 0's
+    vfl-zoo dict with each rank's launches and state digest
+    (``run_data_parallel``). With ``--monitor`` each also carries the
+    collector's ``alerts``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -502,10 +529,12 @@ def main(argv=None) -> dict:
     return out
 
 
-def make_zoo_run(args, cfg, device):
+def make_zoo_run(args, cfg, device, group=None):
     """What an in-memory vfl-zoo run of ``args`` on ``cfg`` starts from:
     (vfl, step, state, data), the data ``max(64, 8 * batch)`` rows from
-    which each step draws its batch (``main``)."""
+    which each step draws its batch (``main``). With a data group
+    (launch/mesh.py) the step is the sharded one: it takes the global
+    batch and steps on the rank's part."""
     if cfg.d_model % args.parties:
         raise ValueError(f"--parties must divide d_model={cfg.d_model}")
     model = build_model(cfg)
@@ -514,7 +543,7 @@ def make_zoo_run(args, cfg, device):
     vfl = VFLConfig(num_parties=args.parties, mu=args.mu, lr_party=args.lr,
                     lr_server=args.lr / args.parties, dp=make_dp(args),
                     fused=args.fused, codec=args.codec)
-    _, init, step = step_lib.make_vfl_zoo_step(model, vfl)
+    _, init, step = step_lib.make_vfl_zoo_step(model, vfl, group)
     return vfl, step, init(prng.key(args.seed), device), data
 
 
@@ -596,25 +625,30 @@ def run_lm(args, cfg, device, log) -> dict:
             "device": str(device), "state": state}
 
 
-def _dispatch(args, cfg, device) -> dict:
-    if args.serve is not None:
-        return run_serve(args, cfg, device,
-                         ObsMetricLogger(f"serve:{args.arch}:vfl-zoo"))
-    if args.transport == "tcp":
-        # the LR problem pads its d_model features to q equal blocks
-        return run_tcp(args, cfg, device,
-                       ObsMetricLogger(f"train:{args.arch}:vfl-zoo-tcp"))
-    log = ObsMetricLogger(f"train:{args.arch}:{args.mode}")
-    if args.mode == "lm":
-        return run_lm(args, cfg, device, log)
+class _Silent:
+    """The logger of a rank that does not log: rank 0 speaks for all."""
+
+    def log(self, step, **metrics):
+        pass
+
+
+def run_zoo(args, cfg, device, log, group=None) -> dict:
+    """The in-memory vfl-zoo run (``main``'s dict), unsharded or, with a
+    data group, as one rank of ``--data-parallel``: every rank draws the
+    same global batch, steps on its part, restores ``--resume``; only
+    rank 0 (or the unsharded run) prices ``--network`` and, after a
+    barrier, writes ``--ckpt-dir``."""
+    lead = group is None or group.rank == 0
     t_setup = time.perf_counter()
-    vfl, step, state, data = make_zoo_run(args, cfg, device)
+    vfl, step, state, data = make_zoo_run(args, cfg, device, group)
     n = len(data["tokens"])
     dp = vfl.dp
     if dp is not None:
         log.log(0, dp_epsilon=args.dp_epsilon,
                 dp_sigma=(dp.noise_multiplier
                           if dp.noise_multiplier is not None else 0.0))
+    if group is not None:
+        log.log(0, data_parallel=group.world, backend=group.backend)
     rng = np.random.default_rng(args.seed)
     start_step = 0
     if args.resume:
@@ -647,18 +681,88 @@ def _dispatch(args, cfg, device) -> dict:
         if s % args.log_every == 0 or s == args.steps - 1:
             log.log(start_step + s, h=losses[-1], step_s=step_s[-1])
     wire = {}
-    if args.network:
+    if args.network and lead:
         wire = price_network(args, cfg, vfl)
         log.log(args.steps, **wire)
     if args.ckpt_dir:
-        # a resumed run commits PAST the restored step, or the next resume
-        # would restore the earlier checkpoint and drop this run's work
-        save_checkpoint(args.ckpt_dir, start_step + args.steps,
-                        {"w0": state.w0, "parties": state.parties,
-                         "hist": state.hist},
-                        {"arch": args.arch, "mode": "vfl-zoo"})
-    return {"h": losses, "step_s": step_s, "setup_s": setup_s,
-            "start_step": start_step, "device": str(device), **wire}
+        if group is not None:
+            group.barrier()         # every rank has stepped
+        if lead:
+            # a resumed run commits PAST the restored step, or the next
+            # resume would restore the earlier checkpoint and drop this
+            # run's work
+            save_checkpoint(args.ckpt_dir, start_step + args.steps,
+                            {"w0": state.w0, "parties": state.parties,
+                             "hist": state.hist},
+                            {"arch": args.arch, "mode": "vfl-zoo"})
+    out = {"h": losses, "step_s": step_s, "setup_s": setup_s,
+           "start_step": start_step, "device": str(device), **wire}
+    if group is not None:
+        out.update(
+            rank=group.rank, backend=group.backend,
+            launches=ops.launch_counts(), digest=asyrevel.state_digest(state),
+            all_reduces=group.all_reduces, all_reduce_s=group.all_reduce_s,
+            peak_bytes=(torch.cuda.max_memory_allocated(device)
+                        if device.type == "cuda" else 0))
+    return out
+
+
+def _rank_main(rank, world, rendezvous, args) -> dict:
+    """One rank of ``--data-parallel``: join the data group, run the
+    vfl-zoo loop on the sharded step, leave the group. Returns
+    ``run_zoo``'s dict of the rank."""
+    if args.trace:
+        from repro_torch import obs
+        obs.configure(args.trace, role=f"dp-rank{rank}")
+    try:
+        group = make_data_mesh(world, rank, rendezvous, args.device)
+        try:
+            cfg = get_config(args.arch, reduced=args.reduced)
+            log = (ObsMetricLogger(f"train:{args.arch}:{args.mode}")
+                   if rank == 0 else _Silent())
+            return run_zoo(args, cfg, group.device, log, group)
+        finally:
+            group.close()
+    finally:
+        if args.trace:
+            from repro_torch import obs
+            obs.configure(None)
+
+
+def run_data_parallel(args, device) -> dict:
+    """``--data-parallel N``: N rank processes (``_rank_main``), each with
+    a time limit that scales with the steps. Returns rank 0's
+    ``run_zoo`` dict plus ``data_parallel``, and under ``ranks`` each
+    rank's rank, device, backend, kernel launches, state digest,
+    all_reduce count and host seconds and peak device bytes. Any rank's
+    failure fails the run (mesh.RankError)."""
+    if device.type == "cuda":
+        build.build_all()       # the ranks load the libraries, not build
+    results = spawn_ranks(_rank_main, args.data_parallel, (args,),
+                          timeout_s=600.0 + 60.0 * args.steps)
+    keep = ("rank", "device", "backend", "launches", "digest",
+            "all_reduces", "all_reduce_s", "peak_bytes")
+    out = {k: v for k, v in results[0].items() if k not in keep}
+    out["device"] = results[0]["device"]
+    out["data_parallel"] = args.data_parallel
+    out["ranks"] = [{k: r[k] for k in keep} for r in results]
+    return out
+
+
+def _dispatch(args, cfg, device) -> dict:
+    if args.serve is not None:
+        return run_serve(args, cfg, device,
+                         ObsMetricLogger(f"serve:{args.arch}:vfl-zoo"))
+    if args.transport == "tcp":
+        # the LR problem pads its d_model features to q equal blocks
+        return run_tcp(args, cfg, device,
+                       ObsMetricLogger(f"train:{args.arch}:vfl-zoo-tcp"))
+    log = ObsMetricLogger(f"train:{args.arch}:{args.mode}")
+    if args.mode == "lm":
+        return run_lm(args, cfg, device, log)
+    if args.data_parallel > 1:
+        return run_data_parallel(args, device)
+    return run_zoo(args, cfg, device, log)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ pytestmark = pytest.mark.torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -85,7 +85,6 @@ def test_lm_launcher_needs_a_gpu_unless_asked_for_the_cpu():
 
 @pytest.mark.parametrize("extra", [
     ["--transport", "tcp", "--data-parallel", "2"],
-    ["--data-parallel", "2"],
     ["--resume"], ["--dropout-at", "2"], ["--dp-clip", "1"]],
     ids=lambda a: a[0])
 def test_launcher_refuses_what_the_port_does_not_run(extra, capsys):
