@@ -3665,19 +3665,9 @@ def zoo_init_draws(layers, parties):
     matrices a layer (wq, wk, wv, wo, w_gate, w_up, w_down), and each
     party's embedding slice, w1 and w2."""
     return 1 + 7 * layers + 3 * parties
-# the parts of a step timed on their own (the rest is the party update,
-# the server update's arithmetic and the ring buffer)
-SPLIT = (("directions", "repro_torch.core.zoo", "direction_tree"),
-         ("server_forward", "repro_torch.core.vfl",
-          "TransformerVFLModel.server_forward"),
-         ("party_forward", "repro_torch.core.vfl",
-          "TransformerVFLModel.party_forward"),
-         ("up_link", "repro_torch.core.exchange", "ZOExchange.roundtrip_up"))
-
-
 def zoo_phase(dev):
     """The vfl-zoo training mode at qwen1.5-0.5b's full width and depth,
-    through the port's launcher, then the same step's time split, then a
+    through the port's launcher, then the same step's phase spans, then a
     reduced run on the card against the same run on the CPU."""
     import torch
     from repro_torch.configs import get_config
@@ -3707,7 +3697,7 @@ def zoo_phase(dev):
     if not abs(h[0] - math.log(cfg.vocab_size)) < 1.0:
         raise AssertionError(f"first h {h[0]} is not within 1.0 of ln V = "
                              f"{math.log(cfg.vocab_size):.4f}")
-    split = zoo_split(dev)
+    phases = zoo_phase_spans(dev)
 
     # the card against the CPU (the CPU port is held to the jax reference
     # by tests/test_torch_zoo.py): reduced qwen (2 layers, d 256, f32),
@@ -3742,7 +3732,7 @@ def zoo_phase(dev):
         f"{gaps16}")
     return launches, {"steps": ZOO_STEPS, "h": h, "step_s": res["step_s"],
                       "setup_s": res["setup_s"], "peak_gb": peak_gb,
-                      "split_s": split, "card_vs_cpu_gap": gap,
+                      "phase_ms": phases, "card_vs_cpu_gap": gap,
                       "card_vs_cpu_bf16_gaps": gaps16}
 
 
@@ -3803,45 +3793,40 @@ def reduced_bf16_steps(device, steps=3):
     return h
 
 
-def zoo_split(dev):
-    """2 more steps at the same shapes, each part of SPLIT timed on the host
-    between device syncs (the syncs cost a few ms). Returns the mean
-    seconds per step of each part, of the whole step and of the rest."""
-    import importlib
-
+def zoo_phase_spans(dev, argv=ZOO_ARGS, steps=4, kept=2):
+    """``steps`` more vfl-zoo steps at the same shapes under
+    ``torch.profiler``, of which the last ``kept`` are read (the first
+    steps of a fresh run pay lazy loads): the host ms a step in each phase
+    span of the program (``obs.profiled_spans()``: the step's zoo.*
+    phases, which tile it, and the vfl.* forwards inside them), the
+    phases' sum as ``host_step`` and the launcher's step time as ``step``.
+    Nothing is patched and nothing synced: the step runs as it does
+    untraced."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
     from repro_torch.launch import train
 
-    spent, saved = {}, []
-    for name, mod, attr in SPLIT:
-        owner = importlib.import_module(mod)
-        *cls, fn_name = attr.split(".")
-        if cls:
-            owner = getattr(owner, cls[0])
-        fn = getattr(owner, fn_name)
-        saved.append((owner, fn_name, fn))
-
-        def timed(*a, _fn=fn, _name=name, **k):
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            out = _fn(*a, **k)
-            torch.cuda.synchronize(dev)
-            spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t0
-            return out
-        setattr(owner, fn_name, timed)
-    try:
-        res = train.main(ZOO_ARGS + ["--steps", "2", "--log-every", "100",
-                                     "--seed", "1"])
-    finally:
-        for owner, fn_name, fn in saved:
-            setattr(owner, fn_name, fn)
-    n = len(res["step_s"])
-    split = {name: spent.get(name, 0.0) / n for name, _, _ in SPLIT}
-    split["step"] = sum(res["step_s"]) / n
-    split["rest"] = split["step"] - sum(split[name] for name, _, _ in SPLIT)
-    log(f"[zoo] time split, s per step (mean of {n}, under syncs): "
-        f"{json.dumps(split)}")
-    return split
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if torch.device(dev).type == "cuda"
+                                     else [])
+    with profile(activities=acts):
+        res = train.main(list(argv) + ["--steps", str(steps),
+                                       "--log-every", "100", "--seed", "1"])
+    spans = obs.profiled_spans()
+    ids = sorted({s.step for s in spans if s.depth == 0})[-kept:]
+    spans = [s for s in spans if s.step in ids]
+    phases = {}
+    for s in spans:
+        phases[s.name] = phases.get(s.name, 0.0) \
+            + (s.t1_ns - s.t0_ns) / 1e6 / kept
+    phases["host_step"] = sum((s.t1_ns - s.t0_ns) / 1e6 / kept
+                              for s in spans if s.depth == 0)
+    phases["step"] = 1e3 * sum(res["step_s"][-kept:]) / kept
+    log(f"[zoo] phase spans, host ms a step (mean of the last {kept} of "
+        f"{steps}, under the profiler): {json.dumps(phases)}")
+    return phases
 
 
 @functools.lru_cache(maxsize=1)

@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import VFLConfig
 from repro_torch.core.exchange import ZOExchange
+from repro_torch.obs import trace
 from repro_torch.utils import prng, trees, xla_math
 from repro_torch.utils.device import resolve_device
 
@@ -106,60 +107,73 @@ def draw_party_and_delays(vfl: VFLConfig, state: AsyState):
 def asyrevel_step(model, vfl: VFLConfig, state: AsyState, batch,
                   ex: ZOExchange | None = None):
     """One AsyREVEL iteration (Algorithm 1 lines 2-11). Returns
-    (new_state, h)."""
-    ex = ex if ex is not None else ZOExchange.from_config(vfl)
-    tau = vfl.max_delay
-    key = prng.fold_in(state.key, state.step)
-    k_u, k_u0, k_c = (prng.fold_name(key, s) for s in ("u", "u0", "codec"))
-    x = model.party_args(batch)
-    y = model.server_args(batch)
-
-    # --- Assumption 3: activated party; Assumption 4: bounded delays -----
-    m_t, delays = draw_party_and_delays(vfl, state)
-    # w^{t-delta} = params after step t-1-delta; hist[s] holds the params
-    # written at the end of the latest step with step % (tau+1) == s
-    slots = [(state.step - 1 - d) % (tau + 1) for d in delays]
-    stale = _stale_parties(state.hist, slots)
+    (new_state, h). Its phases are spans (``obs.trace``, ``step`` the
+    state's), which tile it: zoo.draws, zoo.party_up, zoo.server_fwd,
+    zoo.party_estimate, zoo.party_update, zoo.server_update,
+    zoo.hist_write."""
+    with trace("zoo.draws", step=state.step):
+        ex = ex if ex is not None else ZOExchange.from_config(vfl)
+        tau = vfl.max_delay
+        key = prng.fold_in(state.key, state.step)
+        k_u, k_u0, k_c = (prng.fold_name(key, s)
+                          for s in ("u", "u0", "codec"))
+        # --- Assumption 3: activated party; Assumption 4: bounded delays
+        m_t, delays = draw_party_and_delays(vfl, state)
+        # w^{t-delta} = params after step t-1-delta; hist[s] holds the
+        # params written at the end of the latest step with
+        # step % (tau+1) == s
+        slots = [(state.step - 1 - d) % (tau + 1) for d in delays]
 
     # --- steps 4-5: the c table the server holds is what survived the
     # up-link codec, one message (party) at a time -------------------------
-    cs = model.all_party_outputs(stale, x)
-    cs = model.map_party_outputs(
-        cs, lambda c, m: ex.roundtrip_up(c, prng.fold_in(k_c, m)))
-    w_m = _gather_party(state.parties, m_t)
-    x_m = model.slice_features(x, m_t)
-    h = model.server_forward(state.w0, cs, y)               # h_{i,m}
-    reg0 = model.regularizer(w_m)
+    with trace("zoo.party_up", step=state.step):
+        x = model.party_args(batch)
+        stale = _stale_parties(state.hist, slots)
+        cs = model.all_party_outputs(stale, x)
+        cs = model.map_party_outputs(
+            cs, lambda c, m: ex.roundtrip_up(c, prng.fold_in(k_c, m)))
+        w_m = _gather_party(state.parties, m_t)
+        x_m = model.slice_features(x, m_t)
 
-    def f_of(w_m_pert, k_dir):
-        c_hat = model.party_forward(w_m_pert, x_m, m_t)
-        c_hat = ex.roundtrip_up(c_hat, prng.fold_name(k_dir, "codec_hat"))
-        cs_hat = model.replace_party_output(cs, c_hat, m_t)
-        h_bar = model.server_forward(state.w0, cs_hat, y)   # h-bar_{i,m}
-        return h_bar + vfl.lam * model.regularizer(w_m_pert)
+    with trace("zoo.server_fwd", step=state.step):
+        y = model.server_args(batch)
+        h = model.server_forward(state.w0, cs, y)           # h_{i,m}
+        reg0 = model.regularizer(w_m)
 
-    g_m = ex.party_gradient(w_m, k_u, h + vfl.lam * reg0, f_of)
+    with trace("zoo.party_estimate", step=state.step):
+        def f_of(w_m_pert, k_dir):
+            c_hat = model.party_forward(w_m_pert, x_m, m_t)
+            c_hat = ex.roundtrip_up(c_hat,
+                                    prng.fold_name(k_dir, "codec_hat"))
+            cs_hat = model.replace_party_output(cs, c_hat, m_t)
+            h_bar = model.server_forward(state.w0, cs_hat, y)  # h-bar_{i,m}
+            return h_bar + vfl.lam * model.regularizer(w_m_pert)
+
+        g_m = ex.party_gradient(w_m, k_u, h + vfl.lam * reg0, f_of)
 
     # --- steps 6-7: party update (Eq. 15) ----------------------------------
-    parties = ex.apply_block(state.parties, m_t, g_m, vfl.lr_party)
+    with trace("zoo.party_update", step=state.step):
+        parties = ex.apply_block(state.parties, m_t, g_m, vfl.lr_party)
 
     # --- steps 9-11: server's own estimate + update (Eq. 17) ---------------
-    if vfl.perturb_server:
-        w0 = ex.server_update(
-            state.w0, k_u0, h,
-            lambda w0p: model.server_forward(w0p, cs, y),   # h-hat_{i,m}
-            vfl.lr_server)
-    else:
-        w0 = state.w0
+    with trace("zoo.server_update", step=state.step):
+        if vfl.perturb_server:
+            w0 = ex.server_update(
+                state.w0, k_u0, h,
+                lambda w0p: model.server_forward(w0p, cs, y),  # h-hat_{i,m}
+                vfl.lr_server)
+        else:
+            w0 = state.w0
 
-    slot = state.step % (tau + 1)
+    with trace("zoo.hist_write", step=state.step):
+        slot = state.step % (tau + 1)
 
-    def write(hbuf, p):
-        out = hbuf.clone()
-        out[slot] = p
-        return out
-    hist = trees.tree_map(write, state.hist, parties)
-    return AsyState(w0, parties, hist, state.step + 1, state.key), h
+        def write(hbuf, p):
+            out = hbuf.clone()
+            out[slot] = p
+            return out
+        hist = trees.tree_map(write, state.hist, parties)
+        return AsyState(w0, parties, hist, state.step + 1, state.key), h
 
 
 def synrevel_step(model, vfl: VFLConfig, state: AsyState, batch,

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import VFLConfig
 from repro_torch.configs.paper_models import PaperFCNConfig, PaperLRConfig
 from repro_torch.kernels import ops
+from repro_torch.obs import trace
 from repro_torch.models.layers import (cross_entropy_loss, dense_init,
                                        embedding_init)
 from repro_torch.utils import prng, trees
@@ -233,7 +234,9 @@ class TransformerVFLModel(VFLModel):
     feature space (dq = d_model/q), its vertical feature slice, plus a
     small MLP tower: c_m = tower_m(embed_m[tokens]), shaped (B, S, dq).
     The server concatenates the q slices to (B, S, d_model) and runs the
-    backbone. Party params are f32 whatever the model's dtype is.
+    backbone. Party params are f32 whatever the model's dtype is. Each
+    call of ``party_forward`` and ``server_forward`` is a span
+    (``obs.trace``: vfl.party_forward, vfl.server_forward).
     """
 
     def __init__(self, model, vfl: VFLConfig):
@@ -263,9 +266,10 @@ class TransformerVFLModel(VFLModel):
         return x        # tokens are shared ids; the SLICE is the embedding
 
     def party_forward(self, w_m, tokens, m: int):
-        e = w_m["embed"][tokens.long()]                 # (B, S, dq)
-        h = F.gelu(e @ w_m["w1"], approximate="tanh")   # jax.nn.gelu's
-        return e + h @ w_m["w2"]                        # residual tower
+        with trace("vfl.party_forward"):
+            e = w_m["embed"][tokens.long()]                 # (B, S, dq)
+            h = F.gelu(e @ w_m["w1"], approximate="tanh")   # jax.nn.gelu's
+            return e + h @ w_m["w2"]                        # residual tower
 
     def all_party_outputs(self, stacked_w, tokens):
         return torch.stack([
@@ -294,8 +298,9 @@ class TransformerVFLModel(VFLModel):
         return batch
 
     def server_forward(self, w0, cs, batch):
-        B, S = cs.shape[:2]
-        b = dict(batch)
-        b["embeds"] = cs.reshape(B, S, -1)              # concat party slices
-        loss, _ = self.model.loss(w0, b)
-        return loss
+        with trace("vfl.server_forward"):
+            B, S = cs.shape[:2]
+            b = dict(batch)
+            b["embeds"] = cs.reshape(B, S, -1)          # concat party slices
+            loss, _ = self.model.loss(w0, b)
+            return loss

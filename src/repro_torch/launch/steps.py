@@ -21,6 +21,7 @@ from repro_torch.configs.base import VFLConfig
 from repro_torch.core import asyrevel
 from repro_torch.core.exchange import ZOExchange
 from repro_torch.core.vfl import TransformerVFLModel
+from repro_torch.obs import trace
 from repro_torch.optim.optimizers import adam_init, adam_update
 from repro_torch.sharding.rules import shard_batch
 from repro_torch.utils import trees
@@ -50,13 +51,20 @@ def make_train_step(model, schedule=None, grad_clip: float = 1.0,
     slices in order, and f32 gradients are accumulated, each slice's
     divided by the count, as are the losses; the metrics are the last
     slice's (the reference's scan). Peak activation memory drops about
-    1/microbatches at the same math."""
+    1/microbatches at the same math. Its phases are spans
+    (``obs.trace``, ``step`` the state's), which tile it: lm.forward
+    (``model.loss``) and lm.backward (``autograd.grad``), once a slice,
+    then lm.adam; the microbatch path first makes its accumulators in an
+    lm.forward span of their own."""
     sched = schedule or (lambda s: 3e-4)
 
-    def grads_of(params, batch):
+    def forward(params, batch):
         leaves = trees.leaves(params)
         live = [t.detach().requires_grad_(True) for t in leaves]
         loss, metrics = model.loss(trees.unflatten(params, live), batch)
+        return loss, metrics, live
+
+    def backward(params, loss, metrics, live):
         grads = torch.autograd.grad(loss, live)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
@@ -64,25 +72,35 @@ def make_train_step(model, schedule=None, grad_clip: float = 1.0,
 
     def train_step(state: TrainState, batch):
         if microbatches == 1:
-            loss, metrics, grads = grads_of(state.params, batch)
+            with trace("lm.forward", step=state.step):
+                loss, metrics, live = forward(state.params, batch)
+            with trace("lm.backward", step=state.step):
+                loss, metrics, grads = backward(state.params, loss, metrics,
+                                                live)
         else:
-            n = next(iter(batch.values())).shape[0] // microbatches
-            dev = trees.leaves(state.params)[0].device
-            count = torch.full((), microbatches, dtype=torch.float32,
-                               device=dev)
-            grads = trees.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), state.params)
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            with trace("lm.forward", step=state.step):     # accumulators
+                n = next(iter(batch.values())).shape[0] // microbatches
+                dev = trees.leaves(state.params)[0].device
+                count = torch.full((), microbatches, dtype=torch.float32,
+                                   device=dev)
+                grads = trees.tree_map(
+                    lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), state.params)
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(microbatches):
-                mb = {k: a[i * n:(i + 1) * n] for k, a in batch.items()}
-                loss_i, metrics, g_i = grads_of(state.params, mb)
-                grads = trees.tree_map(lambda a, g: a + g.float() / count,
-                                       grads, g_i)
-                loss = loss + loss_i / count
-        params, opt = adam_update(state.params, grads, state.opt,
-                                  sched(state.step), grad_clip=grad_clip)
-        return TrainState(params, opt, state.step + 1), (loss, metrics)
+                with trace("lm.forward", step=state.step):
+                    mb = {k: a[i * n:(i + 1) * n] for k, a in batch.items()}
+                    loss_i, metrics, live = forward(state.params, mb)
+                with trace("lm.backward", step=state.step):
+                    loss_i, metrics, g_i = backward(state.params, loss_i,
+                                                    metrics, live)
+                    grads = trees.tree_map(
+                        lambda a, g: a + g.float() / count, grads, g_i)
+                    loss = loss + loss_i / count
+        with trace("lm.adam", step=state.step):
+            params, opt = adam_update(state.params, grads, state.opt,
+                                      sched(state.step), grad_clip=grad_clip)
+            return TrainState(params, opt, state.step + 1), (loss, metrics)
 
     return train_step
 

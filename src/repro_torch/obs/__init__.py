@@ -16,6 +16,14 @@ reference's module name), both free when tracing is off:
   if tr is not None: tr.counter("reply_cache_hit", party=m)
       — the process tracer handle, or None
 
+While ``torch.profiler`` records, ``trace`` also puts the span on the
+profiler's trace (a FUNCTION-scope range of the same name, with no
+device-side twin) and in a bounded in-memory record of the profiled
+stretch, read with ``profiled_spans()``: (name, step, depth, t0_ns,
+t1_ns), unix ns. The record holds the latest stretch only: the first
+span after one that found the profiler off clears it. Off, a trace
+point reads the profiler's flag besides the cached tracer.
+
 ``configure(dir, role=...)`` is the explicit switch for unscoped code
 (launch/train.py, tests, benchmarks); ``configure(None)`` flushes and
 disables. Spawned children self-configure lazily: the runtime harness
@@ -38,13 +46,16 @@ import atexit
 import contextlib
 import os
 import signal
+import sys
 import threading
+from collections import deque
 from typing import Optional
 
-from repro_torch.obs.tracer import MONITOR_ENV, Tracer
+from repro_torch.obs.tracer import (MONITOR_ENV, ProfiledSpan, ProfilerSpan,
+                                    Tracer)
 
-__all__ = ["Tracer", "configure", "maybe_tracer", "trace", "ENV_VAR",
-           "MONITOR_ENV"]
+__all__ = ["Tracer", "configure", "maybe_tracer", "trace", "profiled_spans",
+           "ProfiledSpan", "ENV_VAR", "MONITOR_ENV", "PROFILED_SPANS_MAX"]
 
 ENV_VAR = "REPRO_TRACE_DIR"
 
@@ -53,6 +64,23 @@ _UNSET = object()            # "not yet resolved from the environment"
 _tracer = _UNSET
 _NULL_SPAN = contextlib.nullcontext()   # shared: nullcontext is stateless
 _term_hook_installed = False
+# the profiled stretch's spans. torch's profiler flag is read from its
+# module once a process has imported torch, so the collector and the
+# live view never import it
+PROFILED_SPANS_MAX = 4096
+_profiled: deque = deque(maxlen=PROFILED_SPANS_MAX)
+_profiler_was_off = True
+_profiler = None                # torch.autograd.profiler, once imported
+
+
+class _NoProfiler:
+    _is_profiler_enabled = False
+
+
+def _find_profiler():
+    global _profiler
+    _profiler = sys.modules.get("torch.autograd.profiler")
+    return _profiler or _NoProfiler
 
 
 def configure(out_dir: Optional[str], role: Optional[str] = None):
@@ -123,11 +151,30 @@ def _install_term_dump() -> None:
 
 
 def trace(name: str, **attrs):
-    """A span context manager, or a shared no-op when tracing is off."""
-    t = maybe_tracer()
+    """A span context manager: the tracer's span when one is configured,
+    a ``ProfilerSpan`` around it while ``torch.profiler`` records, else
+    a shared no-op."""
+    global _profiler_was_off
+    t = _tracer
+    if t is _UNSET:
+        t = maybe_tracer()
+    if (_profiler or _find_profiler())._is_profiler_enabled:
+        if _profiler_was_off:
+            _profiled.clear()
+            _profiler_was_off = False
+        return ProfilerSpan(name, attrs.get("step"),
+                            None if t is None else t.span(name, **attrs),
+                            _profiled)
+    _profiler_was_off = True
     if t is None:
         return _NULL_SPAN
     return t.span(name, **attrs)
+
+
+def profiled_spans() -> tuple:
+    """The latest profiled stretch's spans (``ProfiledSpan``), in the
+    order they closed; at most ``PROFILED_SPANS_MAX``, the newest."""
+    return tuple(_profiled)
 
 
 @atexit.register

@@ -47,6 +47,15 @@ writes it as ``flight-<role>-<pid>.jsonl``, which ``collect.py`` merges
 rounds still reach the merged view. On a clean ``close()`` the stream
 carries one ``{"ev": "shutdown"}`` frame: the collector reads its
 absence as a crash. The frame never touches the trace file.
+
+The profiler's clock: while ``torch.profiler`` records, a span is also
+a ``ProfilerSpan`` (``obs.trace`` picks it): a profiler range of the
+span's name, of FUNCTION scope as an aten op's (not a user annotation,
+so it gets no twin on the device timeline), and on exit one
+``ProfiledSpan`` in the process's in-memory record of the stretch
+(``obs.profiled_spans()``), timed in unix ns as the profiler's events
+are. A JSONL span's ``ts`` meets the same axis through its file's
+``meta`` anchor (docs/port_observability.md).
 """
 from __future__ import annotations
 
@@ -56,7 +65,7 @@ import socket
 import threading
 import time
 from collections import deque
-from typing import Optional
+from typing import NamedTuple, Optional
 
 MONITOR_ENV = "REPRO_MONITOR_ADDR"
 # sendall budget per record mirror: a collector slower than this is
@@ -96,6 +105,72 @@ class _Span:
                "dur": t1 - self._t0, "tid": threading.get_ident()}
         rec.update(self._attrs)
         self._tracer._emit(rec)
+        return False
+
+
+class ProfiledSpan(NamedTuple):
+    """One span closed while ``torch.profiler`` recorded. ``step`` is the
+    span's ``step`` attribute, else its enclosing span's (None if neither
+    has one); ``depth`` counts the profiled spans open around it on its
+    thread; the times are unix ns, the profiler's axis."""
+    name: str
+    step: Optional[int]
+    depth: int
+    t0_ns: int
+    t1_ns: int
+
+
+_OPEN = threading.local()        # this thread's open profiled spans' steps
+_RANGE = None                    # torch's _RecordFunctionFast, once loaded
+
+
+def _open_steps() -> list:
+    stack = getattr(_OPEN, "steps", None)
+    if stack is None:
+        stack = _OPEN.steps = []
+    return stack
+
+
+class ProfilerSpan:
+    """A span while ``torch.profiler`` records: a FUNCTION-scope profiler
+    range of the span's name around the JSONL span (``inner``, when a
+    tracer is configured), appended to ``record`` as a ``ProfiledSpan``
+    on exit. Adds no launch and no sync, as ``_Span``."""
+
+    __slots__ = ("_name", "_step", "_inner", "_record", "_range", "_depth",
+                 "_t0")
+
+    def __init__(self, name: str, step, inner, record):
+        self._name = name
+        self._step = step
+        self._inner = inner
+        self._record = record
+
+    def __enter__(self) -> "ProfilerSpan":
+        global _RANGE
+        if _RANGE is None:
+            from torch._C._profiler import _RecordFunctionFast
+            _RANGE = _RecordFunctionFast
+        stack = _open_steps()
+        if self._step is None and stack:
+            self._step = stack[-1]
+        self._depth = len(stack)
+        stack.append(self._step)
+        self._range = _RANGE(self._name)
+        self._range.__enter__()
+        if self._inner is not None:
+            self._inner.__enter__()
+        self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.time_ns()
+        if self._inner is not None:
+            self._inner.__exit__(*exc)
+        self._range.__exit__(*exc)
+        _open_steps().pop()
+        self._record.append(ProfiledSpan(self._name, self._step,
+                                         self._depth, self._t0, t1))
         return False
 
 

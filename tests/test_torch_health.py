@@ -1,9 +1,9 @@
 """The port's live health plane (repro_torch/obs/health.py, monitor.py,
-live.py, regress.py) against the reference's: every detector, the
-engine's snapshot and ``engine_from_spec`` are fed the record sequences
-of the reference's tests/test_health.py through both packages and must
-give the same alerts, and the port's monitor, live console, regress gate
-and collector pass the reference's own checks. No device is touched:
+live.py) against the reference's: every detector, the engine's snapshot
+and ``engine_from_spec`` are fed the record sequences of the reference's
+tests/test_health.py through both packages and must give the same
+alerts, and the port's monitor, live console and collector pass the
+reference's own checks. No device is touched:
 these modules are pure Python over the trace records."""
 import json
 import os
@@ -12,7 +12,7 @@ import pytest
 
 import repro.obs.health as ref_health
 from repro_torch import obs
-from repro_torch.obs import health, live, regress
+from repro_torch.obs import health, live
 from repro_torch.obs.collect import load_dir_stats
 from repro_torch.obs.health import (ByteDriftDetector, DivergenceDetector,
                                     DPBurnDetector, HealthEngine,
@@ -378,55 +378,3 @@ def test_live_snapshot_renders_party_table_and_alerts(tmp_path, capsys):
     empty = tmp_path / "empty"
     empty.mkdir()
     assert live.main([str(empty), "--snapshot"]) == 1
-
-
-# ------------------------------------------------- bench regression -------
-
-def _bench(tmp_path, subdir, name, rows, ok=True):
-    d = tmp_path / subdir
-    d.mkdir(exist_ok=True)
-    doc = {"artifact": name, "ok": ok,
-           "rows": [{"name": n, "metrics": m} for n, m in rows.items()]}
-    (d / f"BENCH_{name}.json").write_text(json.dumps(doc))
-    return str(d)
-
-
-def test_regress_passes_identical_and_tolerated_drift(tmp_path):
-    rows = {"parity": {"equal": 1.0}, "chain": {"fraction": 0.99},
-            "fused": {"overhead_pct": 1.0, "pass": 1.0}}
-    base = _bench(tmp_path, "base", "x", rows)
-    fresh = _bench(tmp_path, "fresh", "x",
-                   {"parity": {"equal": 1.0}, "chain": {"fraction": 0.98},
-                    "fused": {"overhead_pct": 2.5, "pass": 1.0}})
-    assert regress.main(["--baseline", base, "--fresh", fresh]) == 0
-
-
-def test_regress_fails_on_gate_row_and_tolerance_regressions(tmp_path):
-    from repro.obs import regress as ref_regress
-    rows = {"parity": {"equal": 1.0}, "chain": {"fraction": 0.99},
-            "fused": {"overhead_pct": 1.0}}
-    base = _bench(tmp_path, "base", "x", rows)
-    bad = {"parity": {"equal": 0.0}, "chain": {"fraction": 0.90},
-           "fused": {"overhead_pct": 3.5}}
-    fresh = _bench(tmp_path, "fresh", "x", bad)
-    assert regress.main(["--baseline", base, "--fresh", fresh]) == 1
-    doc = {"ok": True, "rows": [{"name": n, "metrics": m}
-                                for n, m in rows.items()]}
-    got = regress.compare_suite("x", doc, {"ok": True, "rows": [
-        {"name": n, "metrics": m} for n, m in bad.items()]})
-    assert len(got) == 3 and got == ref_regress.compare_suite(
-        "x", doc, {"ok": True, "rows": [{"name": n, "metrics": m}
-                                        for n, m in bad.items()]})
-    gone = _bench(tmp_path, "fresh2", "x", {"parity": {"equal": 1.0}})
-    assert regress.main(["--baseline", base, "--fresh", gone]) == 1
-
-
-def test_regress_missing_artifacts_and_empty_baseline(tmp_path):
-    base = _bench(tmp_path, "base", "x", {"parity": {"equal": 1.0}})
-    nofresh = tmp_path / "nofresh"
-    nofresh.mkdir()
-    assert regress.main(["--baseline", base,
-                         "--fresh", str(nofresh)]) == 1
-    empty = tmp_path / "emptybase"
-    empty.mkdir()
-    assert regress.main(["--baseline", str(empty)]) == 2
