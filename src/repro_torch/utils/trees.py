@@ -16,14 +16,18 @@ def leaves(tree) -> list:
 
 
 def unflatten(tree, new_leaves) -> object:
-    """A tree shaped like ``tree`` holding ``new_leaves`` in flatten order."""
-    it = iter(new_leaves)
+    """A tree shaped like ``tree`` holding ``new_leaves`` in flatten order.
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(tree)
+    No reference cycle forms (a recursive closure would be one, holding
+    the iterator and so ``new_leaves``), so the leaves are freed as soon
+    as the caller drops them, not when the cyclic collector next runs."""
+    return _build(tree, iter(new_leaves))
+
+
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):
