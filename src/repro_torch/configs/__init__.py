@@ -3,9 +3,10 @@ the architecture registry, every family of the reference's (dense, moe,
 ssm, hybrid, vlm, audio): ``get_config("qwen1.5-0.5b")`` returns the full
 config, ``get_config(..., reduced=True)`` the smoke-test variant."""
 from repro_torch.configs.base import (NETWORK_PROFILES, DPConfig,
-                                      ModelConfig, MoEConfig, NetworkConfig,
-                                      RuntimeConfig, ServingConfig,
-                                      SSMConfig, TrainConfig, VFLConfig)
+                                      ModelConfig, MoEConfig, MoEShard,
+                                      NetworkConfig, RuntimeConfig,
+                                      ServingConfig, SSMConfig, TrainConfig,
+                                      VFLConfig)
 from repro_torch.configs.dense import (DEEPSEEK_7B, MINICPM_2B, QWEN15_05B,
                                        YI_34B)
 from repro_torch.configs.moe import PHI35_MOE_42B, QWEN3_MOE_30B
@@ -26,7 +27,7 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return cfg.reduced() if reduced else cfg
 
 
-__all__ = ["ARCH_IDS", "get_config", "ModelConfig", "MoEConfig", "DPConfig",
-           "VFLConfig", "NetworkConfig", "NETWORK_PROFILES", "PaperFCNConfig",
-           "PaperLRConfig", "RuntimeConfig", "ServingConfig", "SSMConfig",
-           "TrainConfig"]
+__all__ = ["ARCH_IDS", "get_config", "ModelConfig", "MoEConfig", "MoEShard",
+           "DPConfig", "VFLConfig", "NetworkConfig", "NETWORK_PROFILES",
+           "PaperFCNConfig", "PaperLRConfig", "RuntimeConfig", "ServingConfig",
+           "SSMConfig", "TrainConfig"]

@@ -25,6 +25,32 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01  # load-balance auxiliary loss
 
+    @property
+    def held(self) -> Tuple[int, int]:
+        """(first, count): the experts this layer holds, all of them."""
+        return 0, self.num_experts
+
+
+@dataclass(frozen=True)
+class MoEShard(MoEConfig):
+    """A card's share of an expert-parallel layer: it routes over all
+    ``num_experts`` and holds experts [first, first + count) of them
+    (``sharding.rules.expert_shard`` makes one). A subclass, so the
+    architectures' ``MoEConfig`` keeps the reference's fields."""
+    first: int = 0
+    count: int = 0
+
+    def __post_init__(self):
+        if not (0 <= self.first and 0 < self.count
+                and self.first + self.count <= self.num_experts):
+            raise ValueError(f"experts [{self.first}, "
+                             f"{self.first + self.count}) are not a share "
+                             f"of {self.num_experts}")
+
+    @property
+    def held(self) -> Tuple[int, int]:
+        return self.first, self.count
+
 
 @dataclass(frozen=True)
 class SSMConfig:
@@ -150,7 +176,8 @@ class ModelConfig:
         per_layer += self._attn_params()
         if self.moe is not None:
             E, fe = self.moe.num_experts, self.moe.d_ff_expert
-            per_layer += d * E + 3 * E * d * fe             # router, experts
+            held = self.moe.held[1]
+            per_layer += d * E + 3 * held * d * fe          # router, experts
         else:
             per_layer += 3 * d * f                          # swiglu
         if self.enc_dec:

@@ -24,6 +24,12 @@ t1_ns), unix ns. The record holds the latest stretch only: the first
 span after one that found the profiler off clears it. Off, a trace
 point reads the profiler's flag besides the cached tracer.
 
+  obs.profiled_count("moe.kept", lambda: kept.sum())
+      — while torch.profiler records, the value (a number, or a device
+        tensor left unsynced) with the step of the span around it, kept
+        beside the profiled spans and resolved when read with
+        ``profiled_counts()``; off, the function is never called
+
 ``configure(dir, role=...)`` is the explicit switch for unscoped code
 (launch/train.py, tests, benchmarks); ``configure(None)`` flushes and
 disables. Spawned children self-configure lazily: the runtime harness
@@ -51,11 +57,13 @@ import threading
 from collections import deque
 from typing import Optional
 
-from repro_torch.obs.tracer import (MONITOR_ENV, ProfiledSpan, ProfilerSpan,
-                                    Tracer)
+from repro_torch.obs.tracer import (MONITOR_ENV, ProfiledCount,
+                                    ProfiledSpan, ProfilerSpan, Tracer,
+                                    open_step)
 
 __all__ = ["Tracer", "configure", "maybe_tracer", "trace", "profiled_spans",
-           "ProfiledSpan", "ENV_VAR", "MONITOR_ENV", "PROFILED_SPANS_MAX"]
+           "profiled_count", "profiled_counts", "ProfiledSpan",
+           "ProfiledCount", "ENV_VAR", "MONITOR_ENV", "PROFILED_SPANS_MAX"]
 
 ENV_VAR = "REPRO_TRACE_DIR"
 
@@ -64,11 +72,12 @@ _UNSET = object()            # "not yet resolved from the environment"
 _tracer = _UNSET
 _NULL_SPAN = contextlib.nullcontext()   # shared: nullcontext is stateless
 _term_hook_installed = False
-# the profiled stretch's spans. torch's profiler flag is read from its
-# module once a process has imported torch, so the collector and the
-# live view never import it
-PROFILED_SPANS_MAX = 4096
+# the profiled stretch's spans and counts (each record holds this many).
+# torch's profiler flag is read from its module once a process has
+# imported torch, so the collector and the live view never import it
+PROFILED_SPANS_MAX = 16384
 _profiled: deque = deque(maxlen=PROFILED_SPANS_MAX)
+_counted: deque = deque(maxlen=PROFILED_SPANS_MAX)
 _profiler_was_off = True
 _profiler = None                # torch.autograd.profiler, once imported
 
@@ -150,31 +159,56 @@ def _install_term_dump() -> None:
         pass                                  # exotic embedding: skip
 
 
+def _profiling() -> bool:
+    """Whether ``torch.profiler`` records. The first call that finds it
+    on after one that found it off clears the profiled records."""
+    global _profiler_was_off
+    if (_profiler or _find_profiler())._is_profiler_enabled:
+        if _profiler_was_off:
+            _profiled.clear()
+            _counted.clear()
+            _profiler_was_off = False
+        return True
+    _profiler_was_off = True
+    return False
+
+
 def trace(name: str, **attrs):
     """A span context manager: the tracer's span when one is configured,
     a ``ProfilerSpan`` around it while ``torch.profiler`` records, else
     a shared no-op."""
-    global _profiler_was_off
     t = _tracer
     if t is _UNSET:
         t = maybe_tracer()
-    if (_profiler or _find_profiler())._is_profiler_enabled:
-        if _profiler_was_off:
-            _profiled.clear()
-            _profiler_was_off = False
+    if _profiling():
         return ProfilerSpan(name, attrs.get("step"),
                             None if t is None else t.span(name, **attrs),
                             _profiled)
-    _profiler_was_off = True
     if t is None:
         return _NULL_SPAN
     return t.span(name, **attrs)
+
+
+def profiled_count(name: str, value) -> None:
+    """While ``torch.profiler`` records, ``value()`` with the step of the
+    profiled span around it (None outside any), for ``profiled_counts``;
+    off, ``value`` is not called, so an untraced step does no more work."""
+    if _profiling():
+        _counted.append((name, open_step(), value()))
 
 
 def profiled_spans() -> tuple:
     """The latest profiled stretch's spans (``ProfiledSpan``), in the
     order they closed; at most ``PROFILED_SPANS_MAX``, the newest."""
     return tuple(_profiled)
+
+
+def profiled_counts() -> tuple:
+    """The latest profiled stretch's counts (``ProfiledCount``), in the
+    order they were made, each value resolved to a float (a device
+    tensor syncs here, after the traced steps); at most
+    ``PROFILED_SPANS_MAX``, the newest."""
+    return tuple(ProfiledCount(n, s, float(v)) for n, s, v in _counted)
 
 
 @atexit.register

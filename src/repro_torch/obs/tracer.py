@@ -120,6 +120,14 @@ class ProfiledSpan(NamedTuple):
     t1_ns: int
 
 
+class ProfiledCount(NamedTuple):
+    """One count made while ``torch.profiler`` recorded: ``step`` is the
+    step of the profiled span open around it (None if none is)."""
+    name: str
+    step: Optional[int]
+    value: float
+
+
 _OPEN = threading.local()        # this thread's open profiled spans' steps
 _RANGE = None                    # torch's _RecordFunctionFast, once loaded
 
@@ -129,6 +137,12 @@ def _open_steps() -> list:
     if stack is None:
         stack = _OPEN.steps = []
     return stack
+
+
+def open_step() -> Optional[int]:
+    """The step of the innermost profiled span open on this thread."""
+    stack = _open_steps()
+    return stack[-1] if stack else None
 
 
 class ProfilerSpan:
